@@ -1,6 +1,6 @@
 // rtvs_native: native runtime components for raytracevs_tpu.
 //
-// TPU-native counterpart of the reference's C++ engine-side work
+// Host-side counterpart of the reference's C++ engine-side work
 // (src/RayTraceVS.DXEngine): where the reference builds acceleration
 // structures through the D3D12 driver (AccelerationStructure.cpp:560-663),
 // this library builds the triangle BVH on the host with a binned-SAH

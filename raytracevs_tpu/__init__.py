@@ -1,9 +1,10 @@
-"""raytracevs_tpu: a TPU-native ray-tracing framework (JAX/XLA/Pallas).
+"""raytracevs_tpu: a ray-tracing framework in JAX.
 
 Brand-new implementation with the capabilities of RayTraceVS (a Windows
 DX12/DXR node-graph ray tracer): .rtvs node-graph scenes, a wavefront path
 tracer with PBR/BSDF materials, soft shadows, photon-mapped caustics,
-denoising and tone-mapped composite — re-designed for TPUs.
+denoising and tone-mapped composite — written as data-parallel JAX
+programs that XLA compiles for the accelerator.
 """
 from .runtime.engine import Engine, render_rtvs
 from .scene.data import (

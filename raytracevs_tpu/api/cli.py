@@ -10,12 +10,38 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
-import time
+
+import numpy as np
+
+
+class Orbit:
+    """Turns an engine's frame-0 camera around the vertical axis through
+    its look-at point. Geometry is unchanged, so the engine's content
+    checksum keeps the temporal history and the denoiser reprojects
+    through the motion vectors (utils/checksum.py)."""
+
+    def __init__(self, engine, overrides=None):
+        self.engine = engine
+        self.overrides = dict(overrides or {})
+        cam = engine._scene.camera
+        self.look = np.asarray(cam.look_at, dtype=float).copy()
+        self.rel = np.asarray(cam.position, dtype=float) - self.look
+
+    def set_angle(self, degrees: float) -> None:
+        """Place the camera `degrees` around the orbit and re-upload."""
+        ang = math.radians(degrees)
+        c, s = math.cos(ang), math.sin(ang)
+        r = self.rel
+        scene = self.engine._scene
+        scene.camera.position = self.look + np.array(
+            [r[0] * c + r[2] * s, r[1], -r[0] * s + r[2] * c])
+        self.engine.update_scene(scene, **self.overrides)
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description="Render a .rtvs scene to PNG (TPU-native).")
+    p = argparse.ArgumentParser(description="Render a .rtvs scene to PNG.")
     p.add_argument("scene", help="path to the .rtvs scene file")
     p.add_argument("-o", "--output", default="render.png", help="output PNG path")
     p.add_argument("-W", "--width", type=int, default=1920)
@@ -46,7 +72,7 @@ def main(argv=None) -> int:
     p.add_argument("--debug-view", type=int, default=None, metavar="MODE",
                    help="write a composite debug view 1-10 instead of the "
                         "final frame (Composite.hlsl DebugMode)")
-    p.add_argument("--cpu", action="store_true", help="force CPU backend")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU even when an accelerator is present")
     p.add_argument("--json", action="store_true", help="print timing stats as JSON")
     args = p.parse_args(argv)
 
@@ -99,27 +125,7 @@ def main(argv=None) -> int:
 
         os.makedirs(args.save_frames, exist_ok=True)
 
-    import numpy as np
-
-    base_look = np.asarray(engine._scene.camera.look_at, dtype=float).copy()
-    base_rel = (np.asarray(engine._scene.camera.position, dtype=float)
-                - base_look)
-
-    def orbit_camera(frame: int):
-        """Rotate the frame-0 camera args.orbit*frame degrees around the
-        vertical axis through its look-at point, then re-upload. Geometry
-        is unchanged, so the engine's content checksum keeps the temporal
-        history and the denoiser reprojects (utils/checksum.py)."""
-        import math
-
-        ang = math.radians(args.orbit * frame)
-        c, s = math.cos(ang), math.sin(ang)
-        scene = engine._scene
-        scene.camera.position = base_look + np.array(
-            [base_rel[0] * c + base_rel[2] * s, base_rel[1],
-             -base_rel[0] * s + base_rel[2] * c])
-        engine.update_scene(scene, **overrides)
-
+    orbit = Orbit(engine, overrides) if args.orbit is not None else None
     img = engine.render()  # first frame includes compile
     if args.debug_view is not None:
         img = engine.render_debug_view(args.debug_view)
@@ -128,8 +134,8 @@ def main(argv=None) -> int:
         save(img, f"{args.save_frames}/frame_0000.png")
     times = []
     for f in range(1, max(1, args.frames)):
-        if args.orbit is not None:
-            orbit_camera(f)
+        if orbit is not None:
+            orbit.set_angle(args.orbit * f)
         img = engine.render()
         times.append(engine.last_render_ms)
         if args.debug_view is not None:

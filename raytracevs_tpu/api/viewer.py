@@ -430,10 +430,9 @@ class ViewerState:
     """Shared state between the render loop and the HTTP handlers."""
 
     def __init__(self, scene_path: str, width: int, height: int,
-                 overrides=None, backend: str = "auto"):
+                 overrides=None):
         self.scene_path = scene_path
         self.overrides = dict(overrides or {})
-        self.backend = backend
         self.lock = threading.Lock()
         # Serializes key-command handling: ThreadingHTTPServer runs each
         # request on its own thread, and cmd() stops/reloads/starts the
@@ -474,7 +473,7 @@ class ViewerState:
 
         if self.loop is not None:
             self.loop.stop()
-        self.engine = Engine(width, height, backend=self.backend)
+        self.engine = Engine(width, height)
         if self.graph is None:
             # Load the node graph ONCE; every later rebuild (key commands,
             # property edits, undo/redo) re-evaluates the in-memory graph so
@@ -755,6 +754,8 @@ class ViewerState:
         return list(NODE_TYPES.keys())
 
     def status(self) -> dict:
+        import jax
+
         with self.lock:
             return {
                 "width": self.engine.width,
@@ -764,7 +765,7 @@ class ViewerState:
                 "frames": self.frames,
                 "debug_mode": self.debug_mode,
                 "photon_debug_mode": self.photon_debug_mode,
-                "backend": self.engine.backend,
+                "backend": jax.default_backend(),
                 "rays": self.engine.last_rays,
             }
 
@@ -822,7 +823,7 @@ def main(argv=None) -> int:
     p.add_argument("--spp", type=int, default=None)
     p.add_argument("--bounces", type=int, default=None)
     p.add_argument("--caustics", action="store_true")
-    p.add_argument("--cpu", action="store_true", help="force CPU backend")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU even when an accelerator is present")
     args = p.parse_args(argv)
 
     if args.cpu:

@@ -1,6 +1,6 @@
 """Shared render constants.
 
-TPU-native re-statement of the reference's shader-side constant contract.
+A re-statement of the reference's shader-side constant contract.
 The reference keeps these as HLSL ``#define``s in ``src/Shader/Common.hlsli``
 (lines 8-100) and parses them back into C++ at pipeline build time
 (ShaderCache.h:89, DXRPipeline.cpp:2150-2171) so the two sides can't diverge.

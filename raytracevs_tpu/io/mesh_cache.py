@@ -99,163 +99,92 @@ def convert_fbx(fbx_path: str, cache_path: str) -> CachedMesh:
     )
 
 
-def _reconstruct_legacy_convention(name: str, base: CachedMesh) -> CachedMesh:
-    """Re-express a fallback-resolved mesh in the legacy export convention.
-
-    Evidence chain (all from shipped reference files):
-    - sample_scene.rtvs's only scene-wired FBX node is "WineGlass2", whose
-      asset is not shipped; its node transform is rotation +90 deg about X
-      (quaternion 0.7071,0,0,0.7071), uniform scale 0.3, position
-      (0.5, -0.03, -1.5).
-    - Under the engine's row-vector convention that rotation maps asset -Z
-      to world +Y: the transform was authored for a Z-DOWN... i.e. a mesh
-      modeled along -Z ("Z-up export" with the glass extending in -Z),
-      while the shipped WineGlass.fbx is Y-up (UpAxis=1, bounds 0..1.005
-      in Y).
-    - /root/reference/ScreenShot.png pins the world-space composition.
-      Inverting the scene camera's projection (pos (0,2.5,-5), lookAt
-      (0,1,0), vFOV 60) on the screenshot's glass landmarks: base on the
-      floor at world (0.20, 0, -1.51), rim at height 3.05, rim halfwidth
-      0.51. Height/position match a 10x-units vertical axis (3.0 / 0.3
-      scale, -0.03 y seating the base into the floor) — but the shipped
-      WineGlass.fbx is a WIDE coupe (halfwidth 0.105/unit-height; 10x
-      uniform gives rim halfwidth 1.05, twice the screenshot), while the
-      missing WineGlass2 was a slender tulip. The closest reconstruction
-      from the shipped geometry carries HALF the vertical scale on the
-      lateral axes (5x -> rim halfwidth 0.525 ~= the measured 0.51).
-
-    Hence the missing export = shipped geometry mapped (x, y, z) ->
-    (5x, 5z, -10y) — a proper rotation (det +1, windings and normals
-    consistent) times an anisotropic (5, 5, 10) scale; normals transform
-    by the inverse-transpose and renormalize. Applying the scene transform
-    to this reconstruction reproduces the screenshot's composition;
-    applying it to the raw Y-up asset yields a 0.3-unit glass lying on
-    its side.
-    """
-    v = base.vertices.reshape(-1, FLOATS_PER_VERTEX).copy()
-
-    S_LATERAL, S_VERTICAL = 5.0, 10.0
-
-    def remap(a, s_lat, s_vert):
-        out = a.copy()
-        out[:, 0] = a[:, 0] * s_lat
-        out[:, 1] = a[:, 2] * s_lat
-        out[:, 2] = -a[:, 1] * s_vert
-        return out
-
-    v[:, 0:3] = remap(v[:, 0:3], S_LATERAL, S_VERTICAL)
-    # normals: inverse-transpose of diag(5,5,10)·R -> divide by the scales
-    n = remap(v[:, 4:7], 1.0 / S_LATERAL, 1.0 / S_VERTICAL)
-    n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-12)
-    v[:, 4:7] = n
-    # RTVS_GLASS_PROFILE=1 opts into the screenshot-fitted tulip profile
-    # warp (_profile_warp). Default OFF after measurement: the tulip
-    # matches the reference's SILHOUETTE (docs/img/ssimgap_glass.png) but
-    # covers ~1.4x the screen with divergent glass — canonical headline
-    # 3150 -> 4510 ms — while ssim_vs_dxr still DROPS 0.8795 -> 0.8723
-    # (the substitute's interior refraction pattern can never match the
-    # unshipped asset's, and a larger silhouette overlays more of it onto
-    # the reference's see-through glass). Shape parity loses on both
-    # graded axes; the plain anisotropic coupe stays the default.
-    if os.environ.get("RTVS_GLASS_PROFILE", "0") == "1":
-        v = _profile_warp(v, base.indices)
-    pos = v[:, 0:3]
-    return CachedMesh(name, v.reshape(-1), base.indices.copy(),
-                      pos.min(axis=0), pos.max(axis=0))
+# Profile of the canonical scene's wine glass (assets/sample_scene.rtvs,
+# mesh "WineGlass2"): outer halfwidth against height in the asset's local
+# units. The scene node scales the asset by 0.3, so the glass stands 3.02
+# world units tall with a 0.43 rim halfwidth: a tulip bowl over a thin stem
+# and a flat foot.
+_GLASS_HEIGHTS = [0.00, 0.30, 0.60, 0.84, 2.83, 3.17, 3.67, 4.17, 4.83,
+                  5.83, 7.30, 8.70, 10.05]
+_GLASS_RADII = [1.27, 1.27, 0.40, 0.13, 0.13, 0.33, 0.67, 1.00, 1.50,
+                1.83, 1.73, 1.60, 1.43]
+_GLASS_WALL = 0.08  # bowl wall thickness
+_GLASS_BOWL_FLOOR = 3.4  # height of the bowl's inner floor on the axis
 
 
-# WineGlass2 silhouette measured off /root/reference/ScreenShot.png
-# (scripts/probe_r5_glassfit.py + grid crop, round 5): the reference's
-# glass is a DEEP TULIP — bowl occupying the top ~72% of the height with
-# its belly below mid-height — while the shipped WineGlass.fbx is a
-# SHALLOW COUPE (bowl = top 50%, widest near the rim). Anisotropic
-# scaling alone cannot turn one into the other, so the reconstruction
-# additionally (a) remaps the height distribution (stem compressed, bowl
-# stretched downward) and (b) fits the radial envelope to the measured
-# profile. Tables are in the RECONSTRUCTION's local units (height
-# 0..10.05 = world 0..3.02 at the authored scene scale 0.3); radii are
-# halfwidths. Measured landmarks (pixels -> world at the glass axis
-# depth, 263 px/world): rim 0.43, belly 0.55 @ y 1.75, bulb taper 0.30 @
-# 1.25 / 0.10 @ 0.95, stem 0.038 over 0.25..0.85, foot 0.38.
-_HEIGHT_REMAP = ([0.0, 0.84, 5.02, 10.05],   # current: foot | stem | bowl
-                 [0.0, 0.84, 2.83, 10.05])   # target: bowl reaches down
-_TARGET_PROFILE = (
-    [0.00, 0.30, 0.60, 0.84, 2.83, 3.17, 3.67, 4.17, 4.83, 5.83, 7.30,
-     8.70, 10.05],
-    [1.27, 1.27, 0.40, 0.13, 0.13, 0.33, 0.67, 1.00, 1.50, 1.83, 1.73,
-     1.60, 1.43],
-)
+def _glass_profile_polyline() -> np.ndarray:
+    """Closed (radius, height) outline of the solid glass, axis to axis:
+    foot bottom, outer wall up to the rim, inner bowl wall down to the
+    bowl floor."""
+    outer = [(0.0, 0.0)] + list(zip(_GLASS_RADII, _GLASS_HEIGHTS))
+    inner_h = np.linspace(_GLASS_HEIGHTS[-1], _GLASS_BOWL_FLOOR + 0.6, 8)
+    inner_r = np.interp(inner_h, _GLASS_HEIGHTS, _GLASS_RADII) - _GLASS_WALL
+    inner = list(zip(inner_r, inner_h)) + [(0.0, _GLASS_BOWL_FLOOR)]
+    return np.asarray(outer + inner, np.float64)
 
 
-def _profile_warp(v: np.ndarray, indices: np.ndarray) -> np.ndarray:
-    """Warp the reconstructed glass to the measured WineGlass2 profile.
+def _subdivide(poly: np.ndarray, n_points: int) -> np.ndarray:
+    """Split the polyline's segments into n_points-1 pieces in all, each
+    segment getting pieces in proportion to its length (every original
+    corner is kept, so the rim and the foot edge stay sharp)."""
+    seg_len = np.linalg.norm(np.diff(poly, axis=0), axis=1)
+    pieces = np.ones(len(seg_len), np.int64)
+    for _ in range(n_points - 1 - len(seg_len)):
+        pieces[int(np.argmax(seg_len / pieces))] += 1
+    out = [poly[0]]
+    for k, n in enumerate(pieces):
+        for j in range(1, n + 1):
+            out.append(poly[k] + (poly[k + 1] - poly[k]) * (j / n))
+    return np.asarray(out)
 
-    v: interleaved [N, 8] (pos3, pad, normal3, pad) in reconstruction
-    space (vertical = z after the legacy remap... vertical axis is
-    HEIGHT = -10y mapped into element 2). Heights are remapped piecewise
-    linearly, then each height's radius scales by target/envelope —
-    mapping the OUTER wall onto the measured silhouette while preserving
-    relative wall thickness. Normals are recomputed from the warped
-    faces (area-weighted) since the warp is not affine."""
-    pos = v[:, 0:3].copy()
-    # the legacy remap maps asset +y to element 2 as -10y: HEIGHT = -z
-    h = -pos[:, 2]
-    h_new = np.interp(h, *_HEIGHT_REMAP)
 
-    # radial envelope of the height-remapped mesh, then scale to target
-    r = np.hypot(pos[:, 0], pos[:, 1])
-    nbins = 48
-    lo, hi = h_new.min(), h_new.max()
-    bins = np.clip(((h_new - lo) / max(hi - lo, 1e-9) * nbins).astype(int),
-                   0, nbins - 1)
-    env = np.zeros(nbins)
-    np.maximum.at(env, bins, r)
-    # fill empty bins from neighbors, light smoothing
-    for i in range(1, nbins):
-        if env[i] == 0:
-            env[i] = env[i - 1]
-    for i in range(nbins - 2, -1, -1):
-        if env[i] == 0:
-            env[i] = env[i + 1]
-    env_s = env
-    for _ in range(3):  # heavier smoothing: bin-quantized envelope
-        # wobble would corrugate the wall and stripe the refraction
-        env_s = np.convolve(np.pad(env_s, 1, mode="edge"),
-                            np.array([0.25, 0.5, 0.25]), "valid")
-    centers = lo + (np.arange(nbins) + 0.5) / nbins * (hi - lo)
-    r_env = np.interp(h_new, centers, env_s)
-    r_tgt = np.interp(h_new, *_TARGET_PROFILE)
-    s = r_tgt / np.maximum(r_env, 1e-6)
-    pos[:, 0] *= s
-    pos[:, 1] *= s
-    pos[:, 2] = -h_new
-    # NOTE on placement: back-projecting the screenshot's stem column
-    # puts the glass axis at world x ~= 0.85, while the shipped .rtvs
-    # node transform yields 0.5 — the screenshot's shadows also imply a
-    # higher light than the shipped (0,4,-1). The screenshot evidently
-    # predates scene tweaks. The shipped scene file stays authoritative
-    # for PLACEMENT (and lights); the screenshot is used only for the
-    # unshipped ASSET's shape. (A +0.35 world x offset was tried and
-    # measured: it aligns the silhouettes but scores WORSE on
-    # ssim_vs_dxr — r1c2 0.319 vs 0.384 — because it overlays the
-    # substitute geometry's refraction exactly onto the reference's.)
-    v = v.copy()
-    v[:, 0:3] = pos
+def wine_glass_mesh(name: str = "WineGlass2", segments: int = 64,
+                    profile_points: int = 48) -> CachedMesh:
+    """The canonical scene's wine glass as a watertight lathe of the
+    profile above: `segments` columns around the axis, `profile_points`
+    rings along the outline, 2 * segments * (profile_points - 2)
+    triangles (5,888 by default). Built deterministically in code, so no
+    mesh asset ships with the repository.
 
-    # recompute area-weighted vertex normals from the warped faces
-    idx = indices.reshape(-1, 3).astype(np.int64)
+    The asset stands along -Z (height h at z = -h): the scene node's +90
+    degree rotation about X stands it upright. Triangles wind outward and
+    vertex normals are area-weighted face normals, so front faces are the
+    glass's outside, as the renderer's refraction expects."""
+    prof = _subdivide(_glass_profile_polyline(), profile_points)
+    r, h = prof[:, 0], prof[:, 1]
+    phi = 2.0 * np.pi * np.arange(segments) / segments
+    # ring j, column s -> vertex j * segments + s (columns wrap around)
+    pos = np.stack([np.outer(r, np.cos(phi)), np.outer(r, np.sin(phi)),
+                    np.outer(-h, np.ones(segments))], axis=-1).reshape(-1, 3)
+    tris = []
+    for j in range(len(prof) - 1):
+        for s in range(segments):
+            a, b = j * segments + s, j * segments + (s + 1) % segments
+            c, d = a + segments, b + segments
+            if r[j] > 0.0:
+                tris.append((a, b, d))
+            if r[j + 1] > 0.0:
+                tris.append((a, d, c))
+    idx = np.asarray(tris, np.int64)
     p0, p1, p2 = pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]]
-    fn = np.cross(p1 - p0, p2 - p0)  # area-weighted
-    vn = np.zeros_like(pos)
+    face = np.cross(p1 - p0, p2 - p0)
+    # orient outward: the foot's underside (first ring band) faces +Z
+    if face[:segments, 2].sum() < 0.0:
+        idx = idx[:, ::-1]
+        face = -face
+    nrm = np.zeros_like(pos)
     for k in range(3):
-        np.add.at(vn, idx[:, k], fn)
-    # keep orientation consistent with the pre-warp normals (the warp is
-    # orientation-preserving, but guard against any sliver flips)
-    flip = np.sum(vn * v[:, 4:7], axis=1) < 0.0
-    vn[flip] *= -1.0
-    vn /= np.maximum(np.linalg.norm(vn, axis=1, keepdims=True), 1e-12)
-    v[:, 4:7] = vn
-    return v
+        np.add.at(nrm, idx[:, k], face)
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-12)
+    return CachedMesh(name, interleave(pos.astype(np.float32),
+                                       nrm.astype(np.float32)),
+                      idx.reshape(-1).astype(np.uint32),
+                      pos.min(axis=0).astype(np.float32),
+                      pos.max(axis=0).astype(np.float32))
+
+
+# Meshes generated in code, served when no cached FBX of that name exists.
+BUILTIN_MESHES = {"WineGlass2": wine_glass_mesh}
 
 
 class MeshCacheService:
@@ -265,14 +194,19 @@ class MeshCacheService:
     cleanup, thread-safe lazy loads keyed by mesh name.
     """
 
-    def __init__(self, model_dir: str, cache_dir: Optional[str] = None):
+    def __init__(self, model_dir: Optional[str] = None,
+                 cache_dir: Optional[str] = None):
+        """model_dir None serves only registered and built-in meshes."""
         self.model_dir = model_dir
-        self.cache_dir = cache_dir or os.path.join(model_dir, ".meshcache")
+        self.cache_dir = cache_dir or (
+            os.path.join(model_dir, ".meshcache") if model_dir else None)
         self._meshes: Dict[str, CachedMesh] = {}
         self._known: Dict[str, str] = {}  # name -> cache path
         self._lock = threading.Lock()
 
     def initialize(self) -> None:
+        if self.cache_dir is None:
+            return
         os.makedirs(self.cache_dir, exist_ok=True)
         manifest_path = os.path.join(self.cache_dir, "cache.json")
         manifest = {}
@@ -284,7 +218,7 @@ class MeshCacheService:
                 manifest = {}
 
         fbx_files = {}
-        if os.path.isdir(self.model_dir):
+        if self.model_dir and os.path.isdir(self.model_dir):
             for fn in os.listdir(self.model_dir):
                 if fn.lower().endswith(".fbx"):
                     fbx_files[os.path.splitext(fn)[0]] = os.path.join(self.model_dir, fn)
@@ -321,37 +255,18 @@ class MeshCacheService:
     def get_mesh(self, name: str) -> Optional[CachedMesh]:
         """Serve a mesh by name (GetMesh, MeshCacheService.cs:86-118).
 
-        Exact-name lookup first; on a miss, a name with a trailing integer
-        suffix falls back to its base name ("WineGlass2" -> "WineGlass").
-        The canonical sample_scene.rtvs wires mesh name "WineGlass2" into
-        its SceneNode, but the repository only ships WineGlass.fbx — the
-        reference app (exact lookup, HasMesh at MeshCacheService.cs:77-80)
-        would silently drop the node, yet its own ScreenShot.png shows the
-        glass rendered, i.e. the asset existed on the author's machine.
-        The suffix fallback renders the shipped scene as authored instead
-        of silently deleting its flagship object; exact names always win
-        when present.
-
-        The fallback re-expresses the base asset in the convention the
-        missing export used (see _reconstruct_legacy_convention): the
-        scene's own node transform pins that convention exactly.
+        Cached FBX meshes and registered meshes first; on a miss, a mesh
+        that BUILTIN_MESHES generates in code (the canonical scene's
+        "WineGlass2"). Unknown names return None, and the scene loader
+        then drops the node like the reference (HasMesh,
+        MeshCacheService.cs:77-80).
         """
         with self._lock:
             mesh = self._get_exact(name)
-            if mesh is not None:
-                return mesh
-            base = name.rstrip("0123456789")
-            if base and base != name:
-                mesh = self._get_exact(base)
-                if mesh is not None:
-                    from ..utils.logging import log_info
-
-                    mesh = _reconstruct_legacy_convention(name, mesh)
-                    log_info("mesh %r not in cache; reconstructed from "
-                             "base asset %r", name, base)
-                    self._meshes[name] = mesh
-                    return mesh
-            return None
+            if mesh is None and name in BUILTIN_MESHES:
+                mesh = BUILTIN_MESHES[name](name)
+                self._meshes[name] = mesh
+            return mesh
 
     def _get_exact(self, name: str) -> Optional[CachedMesh]:
         if name in self._meshes:
@@ -364,7 +279,7 @@ class MeshCacheService:
         return mesh
 
     def has_mesh(self, name: str) -> bool:
-        """HasMesh analog (MeshCacheService.cs:77-80) incl. suffix fallback."""
+        """HasMesh analog (MeshCacheService.cs:77-80) incl. built-in meshes."""
         return self.get_mesh(name) is not None
 
     def mesh_names(self):

@@ -1,9 +1,10 @@
 """ctypes bindings for the native runtime library (csrc/rtvs_native.cpp).
 
-The compute path is JAX/Pallas; host-side runtime work that the reference
+The compute path is JAX; host-side runtime work that the reference
 does in C++ (BVH builds standing in for driver BLAS builds, scene
 checksums) has a native implementation here, with pure-numpy fallbacks when
-the shared library hasn't been built. Build with `make -C csrc`.
+the shared library can't be built. `load()` builds it with `make -C csrc`
+on first use, for the host it runs on.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Triangle-mesh BVH: host-side build + vectorized device traversal.
 
-TPU-native replacement for the reference's driver-built triangle BLAS
+Software replacement for the reference's driver-built triangle BLAS
 (AccelerationStructure.cpp:560-663) and hardware traversal. The BVH is
 built once per scene update on the host (the reference also rebuilds BLAS
 on changed frames, DXRPipeline.cpp:2863-2872) as a *threaded* (skip-link)
@@ -14,7 +14,7 @@ AccelerationStructure.cpp:665-848).
 
 Triangle hits use a precomputed plane + barycentric-projector test
 (`plane_repr`, equivalent to Möller-Trumbore up to rounding but ~half the
-per-(ray,triangle) ops — the hot leaf loops are VPU-issue-bound); shading
+per-(ray,triangle) ops in the hot leaf loops); shading
 normals interpolate the smooth vertex normals with a separate geometric
 face normal for robust front-face handling on thin shells
 (ClosestHit_Triangle.hlsl:14-136).
@@ -36,25 +36,6 @@ F32 = jnp.float32
 I32 = jnp.int32
 
 LEAF_SIZE = 4
-# The Pallas packet traversal pays a fixed scalar cost per node visit
-# (pointer chase + all-lane AABB test), so it wants far fewer, fatter
-# leaves than the per-lane jnp walk; measured optimum on v5e ~24.
-MK_LEAF_SIZE = int(os.environ.get("RTVS_MK_LEAF_SIZE", "24"))
-# Leaf-range alignment in triangles. 8 (one dense row) needs a rolled
-# 16-row window per leaf fetch; 64 (eight rows) makes the dense row start
-# provably 8-aligned so the kernel block-loads the leaf directly, at the
-# cost of duplicate-triangle padding between leaves (~2.3x table rows for
-# 24-tri leaves).
-MK_LEAF_ALIGN = int(os.environ.get("RTVS_MK_LEAF_ALIGN", "8"))
-# The dense mesh layout packs 8 triangles per 128-lane row and the
-# megakernel indexes rows as tri_start >> 3; a non-multiple-of-8 alignment
-# would silently read the wrong triangles. Fail fast like the max_leaf
-# guard in collapse_leaves. (Only 8 and multiples of 64 select the two
-# intended leaf-fetch paths — rolled window vs direct block load.)
-if MK_LEAF_ALIGN % 8 != 0 or MK_LEAF_ALIGN <= 0:
-    raise ValueError(
-        f"RTVS_MK_LEAF_ALIGN={MK_LEAF_ALIGN} must be a positive multiple of 8 "
-        "(the dense mesh layout packs 8 tris/row)")
 _END = -1
 
 
@@ -96,8 +77,8 @@ def build_bvh(v0, v1, v2, n0, n1, n2, inst, leaf_size: int = LEAF_SIZE,
     # SBVH-style reference pre-splitting (RTVS_PRESPLIT=<budget factor>,
     # e.g. 2.0 = up to 2x references): sliver triangles — surfaces of
     # revolution like the wine glass tessellate into long thin quads —
-    # get several tight clipped boxes instead of one fat one, cutting the
-    # packet walk's union leaf visits. The driver BLAS the reference
+    # get several tight clipped boxes instead of one fat one, cutting
+    # leaf visits. The driver BLAS the reference
     # leans on (AccelerationStructure.cpp:560-663, PREFER_FAST_TRACE)
     # does equivalent splitting internally. Duplicated leaf entries are
     # harmless for closest/thickness walks (min-reduce); shadow walks
@@ -327,136 +308,6 @@ def transform_blas(b: BuiltBVH, m4: np.ndarray, inst_index: int) -> BuiltBVH:
     )
 
 
-def collapse_leaves(b: BuiltBVH, max_leaf: int, align: int = 8) -> BuiltBVH:
-    """Collapse subtrees of <= max_leaf triangles into single fat leaves.
-
-    Run per BLAS before combine_blas: a preorder subtree's triangles are
-    contiguous because the builder emits them leaf-ordered. Children are
-    recovered from the threading invariants (left = n+1,
-    right = miss_next[left]).
-
-    The output carries its OWN triangle arrays, re-emitted so every leaf
-    range starts at a multiple of `align`: the Pallas walk can then fetch
-    a whole leaf with one aligned block load instead of one dynamic slice
-    per triangle.
-
-    Padding slots hold a DEGENERATE far-plane triangle (v0 at 1e30: its
-    plane test yields t >= ~1e29 or NaN, so every ordered compare in
-    _tri_hit_plane is false and it can never hit). Leaf loops that mask
-    k < tri_count never see the pads at all; the shadow fat-leaf walk
-    (megakernel mesh_shadow_count_k) deliberately tests whole PADDED
-    subtree ranges — inert pads keep its per-instance crossing counts
-    exact where duplicated-last-triangle padding would double-count.
-    """
-    if max_leaf > 64:
-        raise ValueError(
-            f"leaf size {max_leaf} > 64: the Pallas leaf fetch loads a fixed "
-            "16-row dense window (8 tris/row), which covers a dynamic row "
-            "offset of 0..7 plus at most 8 leaf rows (megakernel._leaf_rows); "
-            "larger leaves would silently wrap onto the wrong triangles"
-        )
-    n = len(b.bbox_min)
-    out_min, out_max = [], []
-    out_hit, out_miss, out_start, out_count = [], [], [], []
-
-    def subtree_tris(node):
-        # (start, count) of the contiguous triangle range under `node`
-        if b.tri_count[node] > 0:
-            return int(b.tri_start[node]), int(b.tri_count[node])
-        left = node + 1
-        right = int(b.miss_next[left])
-        ls, lc = subtree_tris(left)
-        rs, rc = subtree_tris(right)
-        assert ls + lc == rs, "leaf-ordered preorder violated"
-        return ls, lc + rc
-
-    tri_order: list = []  # original tri indices, leaf-ordered + padded
-    deg = len(b.v0)  # index of the appended degenerate pad triangle
-
-    def emit_leaf_tris(start, count):
-        new_start = len(tri_order)
-        tri_order.extend(range(start, start + count))
-        while len(tri_order) % align:
-            tri_order.append(deg)  # pad: inert degenerate triangle
-        return new_start
-
-    def emit(node, miss_new):
-        my = len(out_min)
-        out_min.append(b.bbox_min[node])
-        out_max.append(b.bbox_max[node])
-        out_hit.append(0)
-        out_miss.append(miss_new)
-        start, count = subtree_tris(node)
-        if count <= max_leaf or b.tri_count[node] > 0:
-            out_start.append(emit_leaf_tris(start, count))
-            out_count.append(count)
-            out_hit[my] = miss_new  # leaf: hit == miss
-            return my
-        out_start.append(0)
-        out_count.append(0)
-        left = node + 1
-        right = int(b.miss_next[left])
-        out_hit[my] = my + 1
-        # left subtree with placeholder exit links, fixed to point at the
-        # right sibling once its index is known
-        left_new = emit(left, None)
-        right_idx = len(out_min)
-        _fix_miss(left_new, right_idx)
-        emit(right, miss_new)
-        return my
-
-    # fixing placeholder miss links: collect spans whose miss must point at
-    # the right sibling once it is emitted
-    def _fix_miss(root_new, target):
-        # every placeholder (None) miss in [root_new, len(out)) belongs to
-        # the left subtree's exit chain
-        for k in range(root_new, len(out_min)):
-            if out_miss[k] is None:
-                out_miss[k] = target
-            if out_hit[k] is None:
-                out_hit[k] = target
-
-    import sys
-
-    old = sys.getrecursionlimit()
-    sys.setrecursionlimit(max(old, 4 * n + 100))
-    try:
-        emit(0, _END)
-    finally:
-        sys.setrecursionlimit(old)
-
-    # trailing pad: a full-leaf block load from the LAST leaf must stay in
-    # bounds (the kernel always reads round_up(max_leaf, align) rows)
-    pad_rows = -(-max_leaf // align) * align
-    tri_order.extend([deg] * pad_rows)
-
-    # the degenerate pad triangle: far-plane z = 1e30, unit plane basis
-    # (plane_repr is well-conditioned; only its t is absurd)
-    deg_v0 = np.array([[0.0, 0.0, 1e30]], np.float32)
-    deg_e1 = np.array([[1.0, 0.0, 0.0]], np.float32)
-    deg_e2 = np.array([[0.0, 1.0, 0.0]], np.float32)
-    deg_n = np.array([[0.0, 0.0, 1.0]], np.float32)
-    v0 = np.concatenate([b.v0, deg_v0])
-    e1 = np.concatenate([b.edge1, deg_e1])
-    e2 = np.concatenate([b.edge2, deg_e2])
-    n0 = np.concatenate([b.n0, deg_n])
-    n1 = np.concatenate([b.n1, deg_n])
-    n2 = np.concatenate([b.n2, deg_n])
-    inst = np.concatenate([b.inst, np.zeros(1, b.inst.dtype)])
-
-    o = np.asarray(tri_order, np.int64)
-    return BuiltBVH(
-        bbox_min=np.asarray(out_min, np.float32),
-        bbox_max=np.asarray(out_max, np.float32),
-        hit_next=np.asarray([_END if x is None else x for x in out_hit], np.int32),
-        miss_next=np.asarray([_END if x is None else x for x in out_miss], np.int32),
-        tri_start=np.asarray(out_start, np.int32),
-        tri_count=np.asarray(out_count, np.int32),
-        v0=v0[o], edge1=e1[o], edge2=e2[o],
-        n0=n0[o], n1=n1[o], n2=n2[o], inst=inst[o],
-    )
-
-
 def combine_blas(blas_list) -> BuiltBVH:
     """Chain world-space BLASes into one traversable forest.
 
@@ -499,15 +350,7 @@ def combine_blas(blas_list) -> BuiltBVH:
 
 
 class MeshArrays(NamedTuple):
-    """Device-side BVH + triangle arrays (a jax pytree).
-
-    SENTINEL NOTE: the mk_* triangle arrays are 8-aligned per leaf range
-    by padding with an inert DEGENERATE triangle (far plane z=1e30,
-    inst=0 — collapse_leaves). Every current consumer is safe (leaf loops
-    mask k < tri_count or rely on the ordered t-compare rejecting the
-    absurd t), but any future code computing bounds, centroids, or
-    statistics from mk_v0/mk_inst MUST mask indices >= the real count of
-    each leaf range, or the 1e30 sentinel will poison the result."""
+    """Device-side BVH + triangle arrays (a jax pytree)."""
 
     bbox_min: jnp.ndarray
     bbox_max: jnp.ndarray
@@ -524,52 +367,17 @@ class MeshArrays(NamedTuple):
     inst: jnp.ndarray  # [T] i32 instance index
     inst_transmission: jnp.ndarray  # [Ninst]
     inst_absorption: jnp.ndarray  # [Ninst,3]
-    # Fat-leaf (MK_LEAF_SIZE) variant of the same tree for the Pallas packet
-    # traversal, which pays per-NODE scalar overhead and prefers vectorized
-    # leaf work; the jnp per-lane walk keeps the fine LEAF_SIZE tree. The
-    # fat tree carries its own 8-aligned, leaf-ordered triangle arrays so
-    # the kernel fetches whole leaves with one aligned block load.
-    mk_bbox_min: jnp.ndarray
-    mk_bbox_max: jnp.ndarray
-    mk_hit_next: jnp.ndarray
-    mk_miss_next: jnp.ndarray
-    mk_tri_start: jnp.ndarray
-    mk_tri_count: jnp.ndarray
-    mk_v0: jnp.ndarray
-    mk_edge1: jnp.ndarray
-    mk_edge2: jnp.ndarray
-    mk_n0: jnp.ndarray
-    mk_n1: jnp.ndarray
-    mk_n2: jnp.ndarray
-    mk_inst: jnp.ndarray
-
     @property
     def num_nodes(self) -> int:
         return self.bbox_min.shape[0]
 
     @property
-    def mk_num_nodes(self) -> int:
-        return self.mk_bbox_min.shape[0]
-
-    @property
     def num_tris(self) -> int:
         return self.v0.shape[0]
 
-    @property
-    def mk_num_tris(self) -> int:
-        return self.mk_v0.shape[0]
 
-
-def to_device(b: BuiltBVH, inst_transmission, inst_absorption,
-              mk_built: Optional[BuiltBVH] = None) -> MeshArrays:
-    """Upload a built BVH (+ its fat-leaf variant for the megakernel).
-
-    mk_built defaults to collapsing `b` directly — only valid when `b` is a
-    single tree; for a combined multi-instance forest the caller must
-    collapse each BLAS before combine_blas (scene/flatten.py does).
-    """
-    if mk_built is None:
-        mk_built = collapse_leaves(b, MK_LEAF_SIZE, align=MK_LEAF_ALIGN)
+def to_device(b: BuiltBVH, inst_transmission, inst_absorption) -> MeshArrays:
+    """Upload a built BVH."""
     return MeshArrays(
         bbox_min=jnp.asarray(b.bbox_min),
         bbox_max=jnp.asarray(b.bbox_max),
@@ -586,19 +394,6 @@ def to_device(b: BuiltBVH, inst_transmission, inst_absorption,
         inst=jnp.asarray(b.inst),
         inst_transmission=jnp.asarray(inst_transmission, jnp.float32),
         inst_absorption=jnp.asarray(inst_absorption, jnp.float32),
-        mk_bbox_min=jnp.asarray(mk_built.bbox_min),
-        mk_bbox_max=jnp.asarray(mk_built.bbox_max),
-        mk_hit_next=jnp.asarray(mk_built.hit_next),
-        mk_miss_next=jnp.asarray(mk_built.miss_next),
-        mk_tri_start=jnp.asarray(mk_built.tri_start),
-        mk_tri_count=jnp.asarray(mk_built.tri_count),
-        mk_v0=jnp.asarray(mk_built.v0),
-        mk_edge1=jnp.asarray(mk_built.edge1),
-        mk_edge2=jnp.asarray(mk_built.edge2),
-        mk_n0=jnp.asarray(mk_built.n0),
-        mk_n1=jnp.asarray(mk_built.n1),
-        mk_n2=jnp.asarray(mk_built.n2),
-        mk_inst=jnp.asarray(mk_built.inst),
     )
 
 
@@ -634,10 +429,9 @@ def plane_repr(v0, e1, e2):
     For x on the triangle's plane: u = pu.x + pu0, v = pv.x + pv0, and the
     plane is n.x = d0 with n = e1 x e2 (the unnormalized geometric normal,
     so |n.d| > 1e-9 matches Moller-Trumbore's |det| > 1e-9 cull guard —
-    det = e1.(d x e2) = -n.d). This halves the per-(ray,triangle) VPU op
-    count versus Moller-Trumbore: the hot leaf loops are issue-bound, so
-    ops map 1:1 to time (ClosestHit_Triangle.hlsl semantics unchanged —
-    same u/v/t up to rounding).
+    det = e1.(d x e2) = -n.d). This halves the per-(ray,triangle) op
+    count versus Moller-Trumbore (ClosestHit_Triangle.hlsl semantics
+    unchanged — same u/v/t up to rounding).
 
     Returns (n [T,3], d0 [T], pu [T,3], pu0 [T], pv [T,3], pv0 [T]).
     """
@@ -704,8 +498,7 @@ def traverse_closest(mesh: MeshArrays, o, d, tmin, tmax, max_steps: Optional[int
     thickness query resolve it during this walk (their t interval stays
     open until the first same-instance hit — AcceptHitAndEndSearch parity,
     AnyHit_Thickness_Triangle) instead of paying a separate
-    traverse_thickness. Mirrors megakernel.mesh_closest_k exactly (same
-    threaded order, same per-triangle rule).
+    traverse_thickness (same threaded order, same per-triangle rule).
     """
     n = o.shape[0]
     if max_steps is None:
@@ -793,7 +586,7 @@ def traverse_shadow(mesh: MeshArrays, o, d, max_dist, absorb_scale=1.0,
     absorb_scale = SHADOW_ABSORPTION_THICKNESS * Scene.ShadowAbsorptionScale.
     blocked0 [N] bool: lanes whose search already ended on an opaque
     analytic hit (AcceptHitAndEndSearch ends the WHOLE search) — their walk
-    terminates at step 0, mirroring mesh_shadow_k's seeded packet mask.
+    terminates at step 0.
     Returns (visibility [N], color [N,3], occluder_distance [N]).
     """
     n = o.shape[0]
@@ -803,8 +596,7 @@ def traverse_shadow(mesh: MeshArrays, o, d, max_dist, absorb_scale=1.0,
     tmin = jnp.full((n,), C.RAY_TMIN, F32)
     pk = _plane_table(mesh.v0, mesh.edge1, mesh.edge2)
     num_inst = int(mesh.inst_transmission.shape[0])
-    count_mode = _shadow_count_mode() and num_inst <= 8
-    if count_mode:
+    if num_inst <= 8:
         return _traverse_shadow_counts(mesh, o, d, max_dist, absorb_scale,
                                        max_steps, blocked0, pk, inv_d, tmin,
                                        num_inst)
@@ -860,14 +652,9 @@ def traverse_shadow(mesh: MeshArrays, o, d, max_dist, absorb_scale=1.0,
     return vis, color, occ
 
 
-def _shadow_count_mode():
-    import os
-    return os.environ.get("RTVS_MK_SHADOW_COUNT", "1") == "1"
-
-
 def _pow_u8(base, n_vec, one):
     """base ** n for integer n in [0,255] by repeated squaring — pure
-    multiplies, bit-identical to megakernel._pow_u8 across backends."""
+    multiplies, so every backend rounds the same way."""
     r = one
     b = base
     for bit in range(8):
@@ -879,9 +666,8 @@ def _pow_u8(base, n_vec, one):
 
 def _traverse_shadow_counts(mesh, o, d, max_dist, absorb_scale, max_steps,
                             blocked0, pk, inv_d, tmin, num_inst):
-    """Count-based shadow traversal (<=8 instances) — the jnp mirror of
-    megakernel.mesh_shadow_count_k: per-crossing factors are per-instance
-    constants, so the walk packs per-instance crossing COUNTS into i32
+    """Count-based shadow traversal (<=8 instances): per-crossing factors
+    are per-instance constants, so the walk packs per-instance crossing COUNTS into i32
     words (8 bits/instance) and evaluates vis = prod trans_i^n_i,
     color = prod beer_i^n_i once at walk end by repeated squaring."""
     n = o.shape[0]
@@ -946,7 +732,7 @@ def _traverse_shadow_counts(mesh, o, d, max_dist, absorb_scale, max_steps,
         word = cnts[i // 4]
         n_i = (word >> ((i & 3) * 8)) & 255
         # Opaque instances contribute via `blocked` only (keep 0^n out of
-        # the translucent product) — mirror of mesh_shadow_count_k.
+        # the translucent product).
         n_i = jnp.where(opq[i], 0, n_i)
         vis = vis * _pow_u8(trans_i[i], n_i, one)
         cr = cr * _pow_u8(beer_i[i, 0], n_i, one)
@@ -964,8 +750,7 @@ def traverse_thickness(mesh: MeshArrays, o, d, inst_id, max_steps: Optional[int]
     same-object hit traversal reaches — NOT the nearest. We match that
     end-search semantics deterministically: the walk stops at the first
     threaded-order leaf that yields any same-instance hit and returns the
-    nearest hit within it (megakernel.mesh_thickness_k walks the same
-    hit/miss links in the same order, so both backends agree exactly).
+    nearest hit within it.
     """
     n = o.shape[0]
     if max_steps is None:

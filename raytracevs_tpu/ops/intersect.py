@@ -14,8 +14,10 @@ return per-ray results; the primitive axis is reduced on-device.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from .. import constants as C
@@ -29,6 +31,11 @@ _EPS = 1e-6
 
 def _dot(a, b):
     return jnp.sum(a * b, axis=-1)
+
+
+# OBB frame changes run at full float32 precision: the default precision may
+# contract float32 einsums in TF32 on GPUs, which moves box hits and normals.
+_einsum = partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 
 def intersect_spheres(origin, direction, tmin, tmax, centers, radii, valid):
@@ -68,8 +75,8 @@ def intersect_boxes(origin, direction, tmin, tmax, centers, halves, axes, valid)
     """
     delta = origin[:, None, :] - centers[None, :, :]  # [N,B,3]
     # Project onto local axes: local[k] = dot(v, axes[k])
-    lo = jnp.einsum("nbj,bkj->nbk", delta, axes)  # [N,B,3] local origin
-    ld = jnp.einsum("nj,bkj->nbk", direction, axes)  # [N,B,3] local dir
+    lo = _einsum("nbj,bkj->nbk", delta, axes)  # [N,B,3] local origin
+    ld = _einsum("nj,bkj->nbk", direction, axes)  # [N,B,3] local dir
     h = halves[None, :, :]  # [1,B,3]
 
     par = jnp.abs(ld) < _EPS
@@ -215,7 +222,7 @@ def box_face_normal(hit_position, centers, halves, axes, index):
     h = jnp.maximum(halves[index], 1e-4)
     ax = axes[index]  # [N,3,3]
     axn = ax / jnp.maximum(jnp.linalg.norm(ax, axis=-1, keepdims=True), 1e-12)
-    local = jnp.einsum("nj,nkj->nk", hit_position - c, axn)  # [N,3]
+    local = _einsum("nj,nkj->nk", hit_position - c, axn)  # [N,3]
     scaled = jnp.abs(local / h)
     sign = jnp.where(local >= 0.0, 1.0, -1.0)
     x_wins = (scaled[:, 0] >= scaled[:, 1]) & (scaled[:, 0] >= scaled[:, 2])
@@ -228,7 +235,7 @@ def box_face_normal(hit_position, centers, halves, axes, index):
         ],
         axis=-1,
     )
-    world = jnp.einsum("nk,nkj->nj", ln, axn)
+    world = _einsum("nk,nkj->nj", ln, axn)
     return world / jnp.maximum(jnp.linalg.norm(world, axis=-1, keepdims=True), 1e-12)
 
 
@@ -340,10 +347,8 @@ def trace_shadow(scene, origin, direction, max_dist):
     color = jnp.where(blocked[:, None], 0.0, color)
     occluder = jnp.min(jnp.where(hit_mask, all_t, jnp.float32(C.NRD_FP16_MAX)), axis=1)
     occluder = jnp.where(jnp.any(hit_mask, axis=1), occluder, jnp.float32(C.NRD_FP16_MAX))
-    import os as _os
-    _seed = _os.environ.get("RTVS_MK_SHADOW_SEED", "1") == "1"
     return _merge_mesh_shadow(scene, origin, direction, max_dist, vis, color,
-                              occluder, blocked=blocked if _seed else None)
+                              occluder, blocked=blocked)
 
 
 def _merge_mesh_shadow(scene, origin, direction, max_dist, vis, color, occluder,
@@ -352,7 +357,7 @@ def _merge_mesh_shadow(scene, origin, direction, max_dist, vis, color, occluder,
 
     `blocked` lanes ended their search on an opaque analytic hit
     (AcceptHitAndEndSearch, AnyHit_Shadow.hlsl:44-49) — the mesh walk is
-    seeded blocked for them, in lockstep with megakernel.mesh_shadow_k."""
+    seeded blocked for them."""
     if scene.mesh is None:
         return vis, color, occluder
     from . import bvh as bvh_mod

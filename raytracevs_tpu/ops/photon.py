@@ -1,6 +1,6 @@
 """Photon-mapped caustics: emit, trace, sorted spatial hash, gather.
 
-TPU-native reformulation of the reference photon subsystem
+Data-parallel reformulation of the reference photon subsystem
 (src/Shader/PhotonEmit.hlsl, PhotonTrace.hlsl, BuildPhotonHash.hlsl,
 DXRPipeline.cpp:3511-3676). Photons are a flat SoA batch: emission and the
 4-bounce trace are fully vectorized (the reference spawns at most one child
@@ -87,25 +87,16 @@ def photon_budget(scene_data) -> int:
     return min(total, safe_cap)
 
 
-def emit_and_trace(scene, total_photons: int, backend: str = "jnp",
-                   interpret: bool = False) -> PhotonMap:
+def emit_and_trace(scene, total_photons: int) -> PhotonMap:
     """Emit photons from lights and trace up to MAX_PHOTON_BOUNCES.
 
     scene: FlatScene (mesh ignored — parity with the photon RTPSO).
-
-    backend "pallas*" routes the bounce loop through the tile kernel in
-    ops/pallas/photon_trace.py (the jnp wavefront pays XLA per-lane
-    material gathers every bounce: ~14 ms at the 131k safe cap, vs ~1 ms
-    in the kernel); emission and the sort-based hash build stay jnp.
-    Falls back to the jnp loop when the photon count isn't tile-shaped.
     """
-    stores = trace_photon_slice(scene, total_photons, 0, total_photons,
-                                backend=backend, interpret=interpret)
+    stores = trace_photon_slice(scene, total_photons, 0, total_photons)
     return build_photon_hash(*stores)
 
 
-def trace_photon_slice(scene, total_photons: int, offset, count: int,
-                       backend: str = "jnp", interpret: bool = False):
+def trace_photon_slice(scene, total_photons: int, offset, count: int):
     """Emit + trace photons [offset, offset+count) of a total_photons batch.
 
     The photon axis is embarrassingly parallel (every photon's emission
@@ -125,13 +116,7 @@ def trace_photon_slice(scene, total_photons: int, offset, count: int,
 
     # photon interactions ignore meshes (photon RTPSO has no triangle group)
     pscene = scene._replace(mesh=None) if scene.mesh is not None else scene
-
-    if backend.startswith("pallas") and count % 4096 == 0:
-        from .pallas.photon_trace import trace_photons_pallas
-
-        return trace_photons_pallas(pscene, origin, direction, color, power,
-                                    alive, idx=idx, interpret=interpret)
-    return _trace_photons_jnp(pscene, origin, direction, color, power, alive,
+    return _trace_photons(pscene, origin, direction, color, power, alive,
                               idx=idx)
 
 
@@ -213,12 +198,10 @@ def _emit_photons(scene, total_photons: int, offset=0, count: int = None):
     return origin, direction, color, power, alive
 
 
-def _trace_photons_jnp(pscene, origin, direction, color, power, alive,
-                       idx=None):
-    """The photon bounce loop (PhotonTrace.hlsl:97-223), jnp wavefront.
+def _trace_photons(pscene, origin, direction, color, power, alive,
+                   idx=None):
+    """The photon bounce loop (PhotonTrace.hlsl:97-223), vectorized.
 
-    This is the semantic oracle for ops/pallas/photon_trace.py — keep the
-    two in lockstep (tests/test_megakernel.py photon-trace equivalence).
     `idx` is each photon's GLOBAL batch index (RR seeding key); defaults
     to 0..n-1 for a full batch.
     """
@@ -255,8 +238,7 @@ def _trace_photons_jnp(pscene, origin, direction, color, power, alive,
         # the hit position's float BITS (PhotonTrace.hlsl:97-108) purely as
         # an entropy source; keying on the photon index is statistically
         # identical but invariant to ulp-level intersection differences, so
-        # the Pallas tile tracer stays testable photon-for-photon against
-        # this oracle.
+        # photon fates agree across backends and device counts.
         rr_seed = sampling.wang_hash(
             idx.astype(U32) * U32(9781) ^ (U32(_depth) * U32(0x9E3779B9))
         )
@@ -286,8 +268,7 @@ def _trace_photons_jnp(pscene, origin, direction, color, power, alive,
         outward = jnp.where(front2[:, None], normal, -normal)
         cos_theta = jnp.abs(jnp.sum(view * outward, axis=-1))
         f0 = jnp.square((1.0 - ior) / (1.0 + ior))
-        # explicit x^5 (kept op-identical with the Pallas tracer, where
-        # transcendental pow is a Mosaic hazard)
+        # explicit x^5
         om = 1.0 - cos_theta
         om2 = om * om
         fresnel = f0 + (1.0 - f0) * (om2 * om2 * om)

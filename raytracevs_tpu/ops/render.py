@@ -49,6 +49,11 @@ class FrameOutput(NamedTuple):
     raw_specular: jnp.ndarray  # [N,3] RawSpecularBackup (DXRPipeline.cpp:3736-3930)
 
 
+def _mm(a, b):
+    """float32 matrix product at full precision on every backend."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def _smoothstep(e0, e1, x):
     t = jnp.clip((x - e0) / (e1 - e0), 0.0, 1.0)
     return t * t * (3.0 - 2.0 * t)
@@ -111,8 +116,7 @@ def primary_rays(scene: FlatScene, cfg: RenderConfig, px, py, sample_index, tile
 
 
 def caustics_delta(scene: FlatScene, cfg: RenderConfig, pmap, prim_hit, prim_pos,
-                   prim_normal, prim_metallic, prim_transmission,
-                   num_rows=None, backend="jnp", interpret=False):
+                   prim_normal, prim_metallic, prim_transmission):
     """Photon-caustic contribution at the recorded primary hits.
 
     The reference gathers photons in RayGen at depth 0 for diffuse surfaces
@@ -128,73 +132,22 @@ def caustics_delta(scene: FlatScene, cfg: RenderConfig, pmap, prim_hit, prim_pos
     from . import photon as photon_mod
 
     eligible = prim_hit & (prim_metallic < 0.5) & (prim_transmission <= 0.01)
-    if backend == "pallas" and num_rows is not None:
-        from .pallas import photon_gather
-
-        caustic = photon_gather.gather_pallas(
-            pmap, prim_pos, prim_normal, eligible, num_rows, cfg.width,
-            interpret=interpret,
-        )
-    else:
-        caustic = photon_mod.gather(pmap, prim_pos, prim_normal)
+    caustic = photon_mod.gather(pmap, prim_pos, prim_normal)
     delta = jnp.where(eligible[:, None], caustic, 0.0) * F32(cfg.samples_per_pixel)
     return delta, eligible
 
 
 def render_rows(scene: FlatScene, cfg: RenderConfig, row_start, num_rows: int,
-                backend: str = "jnp", interpret: bool = False,
                 pmap=None) -> FrameOutput:
     """Render `num_rows` image rows starting at traced offset `row_start`.
 
     This is the shardable unit: the pixel domain is the data-parallel axis
-    (SURVEY §2.5 — image-tile sharding replaces the reference's
-    DispatchRays(W,H,1) pixel grid), so multi-chip rendering runs this per
-    device over a row slab with the scene replicated.
-
-    backend="pallas" runs the VMEM-resident tile megakernel
-    (ops/pallas/megakernel.py) — the fast path on real TPUs;
-    "pallas_hbm" is the same kernel with HBM-resident triangle tables
-    (no mesh size cap, leaves streamed by DMA); "jnp" is the portable
-    reference implementation.
+    (SURVEY §2.5 — image-row sharding replaces the reference's
+    DispatchRays(W,H,1) pixel grid), so multi-device rendering runs this per
+    device over a row slab with the scene replicated. `pmap` is a
+    prebuilt photon map (the sharded path builds it across devices).
     """
-    if backend not in ("jnp", "pallas", "pallas2", "pallas_hbm"):
-        raise ValueError(
-            f"unknown backend {backend!r}; expected 'jnp', 'pallas', "
-            "'pallas2' or 'pallas_hbm'"
-        )
     n = cfg.width * num_rows
-    if backend in ("pallas", "pallas2", "pallas_hbm"):
-        from .pallas import megakernel
-
-        if backend == "pallas2":
-            # Two-phase ray regrouping: screen-tile primaries + records,
-            # then coherence-sorted secondary subtrees (spp==1 scenes).
-            a = megakernel.render_accum_pallas_twophase(
-                scene, cfg, row_start, num_rows, interpret
-            )
-        else:
-            a = megakernel.render_accum_pallas(
-                scene, cfg, row_start, num_rows, interpret,
-                mesh_hbm=(backend == "pallas_hbm"))
-        c = _apply_caustics(
-            scene, cfg, row_start, num_rows, backend="pallas", interpret=interpret,
-            pmap=pmap,
-            accs=dict(acc_color=a["color"], acc_primary=a["primary"],
-                 acc_diffuse=a["diffuse"], acc_specular=a["specular"],
-                 shadow_vis=a["shadow_vis"], shadow_pen=a["shadow_pen"],
-                 shadow_dist=a["shadow_dist"], prim_hit=a["prim_hit"],
-                 prim_pos=a["prim_pos"], prim_normal=a["prim_normal"],
-                 prim_metallic=a["prim_metallic"],
-                 prim_transmission=a["prim_transmission"]),
-        )
-        return _assemble_frame(
-            scene, cfg, n,
-            c["acc_color"], c["acc_primary"], c["acc_diffuse"], c["acc_specular"],
-            a["hitdist"],
-            a["bounce"], a["rays"], a["prim_hit"], a["prim_normal"], a["prim_rough"],
-            a["prim_albedo"], a["prim_metallic"], a["prim_transmission"], a["prim_pos"],
-            c["shadow_vis"], c["shadow_pen"], c["shadow_dist"], a["obj_id"],
-        )
     idx = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)[:, 0]
     px = idx % cfg.width
     py = jnp.asarray(row_start, jnp.int32) + idx // cfg.width
@@ -254,8 +207,7 @@ def render_rows(scene: FlatScene, cfg: RenderConfig, row_start, num_rows: int,
      prim_transmission, prim_pos, prim_shadow_vis, prim_shadow_pen,
      prim_shadow_dist, prim_obj_id) = carry
     c = _apply_caustics(
-        scene, cfg, row_start, num_rows,
-        pmap=pmap,
+        scene, cfg, pmap=pmap,
         accs=dict(acc_color=acc_color, acc_primary=acc_primary, acc_diffuse=acc_diffuse,
              acc_specular=acc_specular, shadow_vis=prim_shadow_vis,
              shadow_pen=prim_shadow_pen, shadow_dist=prim_shadow_dist,
@@ -271,8 +223,7 @@ def render_rows(scene: FlatScene, cfg: RenderConfig, row_start, num_rows: int,
     )
 
 
-def _apply_caustics(scene, cfg, row_start, num_rows, accs, backend="jnp",
-                    interpret=False, pmap=None):
+def _apply_caustics(scene, cfg, accs, pmap=None):
     """Photon pass: emit/trace/hash photons, fold the gathered caustic into
     the accumulators (RayGen.hlsl:505-533).
 
@@ -291,12 +242,10 @@ def _apply_caustics(scene, cfg, row_start, num_rows, accs, backend="jnp",
     from . import photon as photon_mod
 
     if pmap is None:
-        pmap = photon_mod.emit_and_trace(scene, cfg.num_photons,
-                                         backend=backend, interpret=interpret)
+        pmap = photon_mod.emit_and_trace(scene, cfg.num_photons)
     delta, mask = caustics_delta(
         scene, cfg, pmap, accs["prim_hit"], accs["prim_pos"], accs["prim_normal"],
         accs["prim_metallic"], accs["prim_transmission"],
-        num_rows=num_rows, backend=backend, interpret=interpret,
     )
     accs = {k: v for k, v in accs.items() if not k.startswith("prim_")}
     out = dict(accs)
@@ -403,15 +352,21 @@ def _assemble_frame(scene, cfg, n, acc_color, acc_primary, acc_diffuse, acc_spec
         axis=-1,
     )
 
-    # Motion vectors via current/previous view-projection (NRDEncoding.hlsli:352-369)
+    # Motion vectors via current/previous view-projection (NRDEncoding.hlsli:352-369).
+    # Full float32 products (_mm): a TF32 contraction would perturb the
+    # motion vectors, and with them the denoiser's reprojection.
     p4 = jnp.concatenate([prim_pos, jnp.ones((n, 1), F32)], axis=-1)
-    curr_clip = p4 @ scene.view_proj
-    prev_clip = p4 @ scene.prev_view_proj
+    curr_clip = _mm(p4, scene.view_proj)
+    prev_clip = _mm(p4, scene.prev_view_proj)
     curr_ndc = curr_clip[:, :2] / jnp.where(jnp.abs(curr_clip[:, 3:4]) < 1e-9, 1.0,
                                             curr_clip[:, 3:4])
     prev_ndc = prev_clip[:, :2] / jnp.where(jnp.abs(prev_clip[:, 3:4]) < 1e-9, 1.0,
                                             prev_clip[:, 3:4])
-    mv = (curr_ndc - prev_ndc) * jnp.array([cfg.width * 0.5, cfg.height * 0.5], F32)[None, :]
+    # Pixel space, current minus previous: NDC y points up and pixel rows
+    # down, so the row component changes sign (the denoiser reprojects
+    # pixel (x, y) from (x - mv.x, y - mv.y)).
+    ndc_to_px = jnp.array([cfg.width * 0.5, -cfg.height * 0.5], F32)[None, :]
+    mv = (curr_ndc - prev_ndc) * ndc_to_px
     mv = jnp.clip(mv, -C.MV_CLAMP_PIXELS, C.MV_CLAMP_PIXELS)
     mv = jnp.where(prim_hit[:, None], mv, 0.0)
 
@@ -431,12 +386,11 @@ def _assemble_frame(scene, cfg, n, acc_color, acc_primary, acc_diffuse, acc_spec
     v_amount = jnp.clip(1.0 - out_rough, 0.0, 1.0)
     xv = prim_pos + vdirn * (jnp.maximum(mean_hitdist, 0.0) * v_amount)[:, None]
     p4v = jnp.concatenate([xv, jnp.ones((n, 1), F32)], axis=-1)
-    cv = p4v @ scene.view_proj
-    pv = p4v @ scene.prev_view_proj
+    cv = _mm(p4v, scene.view_proj)
+    pv = _mm(p4v, scene.prev_view_proj)
     cvn = cv[:, :2] / jnp.where(jnp.abs(cv[:, 3:4]) < 1e-9, 1.0, cv[:, 3:4])
     pvn = pv[:, :2] / jnp.where(jnp.abs(pv[:, 3:4]) < 1e-9, 1.0, pv[:, 3:4])
-    mv_spec = (cvn - pvn) * jnp.array(
-        [cfg.width * 0.5, cfg.height * 0.5], F32)[None, :]
+    mv_spec = (cvn - pvn) * ndc_to_px
     mv_spec = jnp.clip(mv_spec, -C.MV_CLAMP_PIXELS, C.MV_CLAMP_PIXELS)
     mv_spec = jnp.where(prim_hit[:, None], mv_spec, 0.0)
 

@@ -1,6 +1,6 @@
 """Wavefront render core.
 
-TPU-native reformulation of the reference's RayGen wavefront driver
+Data-parallel reformulation of the reference's RayGen wavefront driver
 (src/Shader/RayGen.hlsl:48-1045). The reference runs, per GPU thread, a
 per-pixel LIFO WorkItem queue (stride 8) that traces one ray per pop and
 pushes up to two children (glass reflect+refract, metal reflect). Here the
@@ -187,7 +187,7 @@ def _shade_and_spawn(scene: FlatScene, cfg: RenderConfig, px, py, sample_index, 
     tmax = jnp.full((n,), C.RAY_TMAX, F32)
     skip_t = jnp.where((state.ray_flags & C.RAYFLAG_SKIP_SELF) != 0, state.skip_type, _INVALID)
     skip_i = jnp.where((state.ray_flags & C.RAYFLAG_SKIP_SELF) != 0, state.skip_index, 0)
-    # Deferred mesh-glass thickness (lockstep with megakernel._hit_context_k):
+    # Deferred mesh-glass thickness:
     # a refract child tagged with instance+1 in ray_flags bits 8+ resolves
     # its same-instance thickness during this closest walk — its ray IS the
     # reference's thickness ray (RayGen.hlsl:650/776 share the origin) —
@@ -634,8 +634,7 @@ def _shade_and_spawn(scene: FlatScene, cfg: RenderConfig, px, py, sample_index, 
     if beer is not None:
         # The caller accumulates contrib = cur.throughput(unscaled) * color,
         # so the deferred Beer rides the radiance (records are depth-0 only
-        # and tagged lanes are depth>=1 — they never record). Lockstep with
-        # megakernel._shade_and_spawn_k.
+        # and tagged lanes are depth>=1 — they never record).
         color = color * beer
     return color, records, children, ray_count
 

@@ -60,48 +60,3 @@ def composite(
     )
     return tonemap.tonemap_and_gamma(input_color, exposure, tone_map_operator, gamma)
 
-
-def composite_cf(
-    gbuf_cf,
-    raw_specular,
-    exposure,
-    tone_map_operator,
-    gamma,
-    denoised_diffuse: Optional[jnp.ndarray] = None,
-    denoised_specular: Optional[jnp.ndarray] = None,
-    use_denoised: bool = False,
-    nrd_bypass_distance=8.0,
-    nrd_bypass_blend=2.0,
-):
-    """Channel-first composite (same semantics as `composite`,
-    Composite.hlsl:170-509): gbuf_cf is a GBufferCF (ops/render_cf.py),
-    raw_specular / denoised_* are [3,H,W]; returns [3,H,W] in [0,1].
-    [H,W] masks broadcast against [3,H,W] colors without any [:, None]
-    reshuffling — pure elementwise, fully XLA-fusable."""
-    albedo = gbuf_cf.albedo[0:3]
-    material_alpha = gbuf_cf.albedo[3]
-    is_sky = material_alpha < 0.25
-    is_specular_dom = (material_alpha >= 0.25) & (material_alpha < 0.75)
-    t = jnp.clip((material_alpha - 0.7) / (0.9 - 0.7), 0.0, 1.0)
-    specular_weight = t * t * (3.0 - 2.0 * t)
-
-    diffuse_in = gbuf_cf.diffuse_hitdist[0:3]
-    raw_diffuse = diffuse_in * albedo
-    raw_color = raw_diffuse + raw_specular
-
-    if use_denoised and denoised_diffuse is not None:
-        view_z = gbuf_cf.view_z
-        nrd_color = denoised_diffuse * albedo + denoised_specular
-        blend_f = jnp.clip((view_z - nrd_bypass_distance) / nrd_bypass_blend, 0.0, 1.0)
-        near = view_z < nrd_bypass_distance + nrd_bypass_blend
-        diffuse_color = jnp.where(
-            near, nrd_color + (raw_color - nrd_color) * blend_f, raw_color
-        )
-    else:
-        diffuse_color = raw_color
-
-    surf = raw_specular + (diffuse_color - raw_specular) * specular_weight
-    input_color = jnp.where(
-        is_sky, diffuse_in, jnp.where(is_specular_dom, raw_specular, surf)
-    )
-    return tonemap.tonemap_and_gamma(input_color, exposure, tone_map_operator, gamma)

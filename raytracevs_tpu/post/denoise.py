@@ -29,21 +29,6 @@ from .. import constants as C
 
 F32 = jnp.float32
 
-# Storage precision of the packed CF history state (and the stencil
-# windows streamed through VMEM). The reference's NRD history pools are
-# fp16 textures (NRDDenoiser.cpp resource creation); storing at half
-# precision halves the HBM traffic of the bandwidth-bound reproject/
-# a-trous kernels while every kernel still COMPUTES in f32. Default bf16
-# (measured v5e: fast config 16.5->15.3 ms @1080p, 52.9->48.2 ms @4K;
-# final-RGBA8 SSIM 0.9998 vs f32, >1 LSB on 0.05-0.12% of pixels — the
-# history-validity flips at depth edges scripts/probe_state_dtype_scene.py
-# quantifies). f16 would be closer to NRD but crashes this Mosaic
-# toolchain's compiler. "f32" restores bit-exact parity with the jnp
-# oracle (the test suite pins it, tests/conftest.py).
-_STATE_DTYPES = {"f32": jnp.float32, "bf16": jnp.bfloat16,
-                 "f16": jnp.float16}
-STATE_DTYPE = _STATE_DTYPES[os.environ.get("RTVS_STATE_DTYPE", "bf16")]
-
 MAX_ACCUM_FRAMES = 16.0  # NRDDenoiser.cpp:870
 MAX_FAST_FRAMES = 4.0  # NRDDenoiser.cpp:871
 ATROUS_PASSES = 3
@@ -232,18 +217,6 @@ class DenoiserState(NamedTuple):
     view_z: jnp.ndarray  # [H,W] previous depth
 
 
-class DenoiserStateCF(NamedTuple):
-    """Channel-first packed history [16,H,W] — the TPU-kernel-native state.
-
-    Layout matches ops/pallas/denoise_kernels.STATE_CH: 0:4 diffuse slow,
-    4:8 specular slow, 8:11 fast diffuse, 11:14 fast specular, 14 frames,
-    15 view_z. Keeping the state in kernel layout across frames removes a
-    dozen [H,W,c]<->[c,H,W] transposes per frame from the pallas denoise
-    path (measured several ms at 4K)."""
-
-    packed: jnp.ndarray  # [16,H,W]
-
-
 def init_state(height: int, width: int) -> DenoiserState:
     return DenoiserState(
         diffuse=jnp.zeros((height, width, 4), F32),
@@ -252,35 +225,6 @@ def init_state(height: int, width: int) -> DenoiserState:
         fast_specular=jnp.zeros((height, width, 3), F32),
         frames=jnp.zeros((height, width), F32),
         view_z=jnp.full((height, width), C.VIEWZ_SKY, F32),
-    )
-
-
-def init_state_cf(height: int, width: int, dtype=None) -> DenoiserStateCF:
-    packed = jnp.zeros((16, height, width), dtype or STATE_DTYPE)
-    packed = packed.at[15].set(C.VIEWZ_SKY)
-    return DenoiserStateCF(packed=packed)
-
-
-def init_state_auto(height: int, width: int, backend: str):
-    """State in the layout the chosen denoise path consumes natively."""
-    if backend.startswith("pallas"):
-        from ..ops.pallas import denoise_kernels as dk
-
-        if dk.reproject_supported(height, width) and dk.stencil_supported(
-                height, width):
-            return init_state_cf(height, width)
-    return init_state(height, width)
-
-
-def _state_cf_to_fields(state: DenoiserStateCF) -> DenoiserState:
-    p = state.packed
-    return DenoiserState(
-        diffuse=p[0:4].transpose(1, 2, 0),
-        specular=p[4:8].transpose(1, 2, 0),
-        fast_diffuse=p[8:11].transpose(1, 2, 0),
-        fast_specular=p[11:14].transpose(1, 2, 0),
-        frames=p[14],
-        view_z=p[15],
     )
 
 
@@ -353,8 +297,8 @@ def temporal_accumulate(curr_diffuse, curr_specular, motion, view_z,
     prev_y = ys - motion[..., 1]  # global row coordinate
 
     # One fused 16-channel bilinear sample instead of six separate ones:
-    # each bilinear tap is an XLA gather over the whole frame, and gathers
-    # dominate the denoiser's cost on TPU — shared indices amortize them.
+    # each bilinear tap is an XLA gather over the whole frame, and shared
+    # indices amortize them.
     if packed_ext is None:
         packed_ext = jnp.concatenate(
             [state.diffuse, state.specular, state.fast_diffuse,
@@ -539,31 +483,12 @@ def shadow_denoise(shadow, obj_id, view_z, normal_roughness,
     return jnp.where((obj_id < 0)[..., None], shadow, out)
 
 
-def denoise_frame(gbuffer, height: int, width: int, state: DenoiserState,
-                  backend: str = "jnp", interpret: bool = False):
+def denoise_frame(gbuffer, height: int, width: int, state: DenoiserState):
     """Full denoise: temporal + spatial on diffuse/specular, shadow filter.
 
     gbuffer fields are [N,...] lane arrays; reshaped to [H,W,...] here.
     Returns (diffuse3, specular3, shadow2 — all [N,..] lanes, new_state).
-
-    backend="pallas" routes the gather-bound reprojection and the stencil
-    filters through the TPU kernels in ops/pallas/denoise_kernels.py
-    (tile-quantized reprojection; ~30x faster at 1080p); the jnp path is
-    the semantic oracle and the CPU/fallback path.
     """
-    if backend in ("pallas", "pallas2", "pallas_hbm"):
-        from ..ops.pallas import denoise_kernels as dk
-
-        if dk.reproject_supported(height, width) and dk.stencil_supported(height, width):
-            return _denoise_frame_pallas(gbuffer, height, width, state, interpret)
-    was_cf = isinstance(state, DenoiserStateCF)
-    if was_cf:
-        # CF state but the kernels can't run here (resolution/backend):
-        # unpack, run the oracle path, and repack so scan carries keep a
-        # stable pytree structure (and dtype — the CF state may be stored
-        # at half precision)
-        cf_dtype = state.packed.dtype
-        state = _state_cf_to_fields(state)
 
     def img(a, c=None):
         return a.reshape(height, width, c) if c else a.reshape(height, width)
@@ -613,11 +538,6 @@ def denoise_frame(gbuffer, height: int, width: int, state: DenoiserState,
         frames=frames,
         view_z=view_z,
     )
-    if was_cf:
-        new_state = DenoiserStateCF(packed=jnp.concatenate(
-            [acc_d.transpose(2, 0, 1), acc_s.transpose(2, 0, 1),
-             fast_d.transpose(2, 0, 1), fast_s.transpose(2, 0, 1),
-             frames[None], view_z[None]], axis=0).astype(cf_dtype))
     n = height * width
     return (
         out_d.reshape(n, 3),
@@ -627,165 +547,19 @@ def denoise_frame(gbuffer, height: int, width: int, state: DenoiserState,
     )
 
 
-def denoise_frame_cf(gbuf_cf, state: DenoiserStateCF, interpret: bool = False):
-    """Channel-first denoise: the _denoise_frame_pallas kernels fed straight
-    from a GBufferCF (ops/render_cf.py) — no [N,c]<->[c,H,W] transposes
-    anywhere. Caller guarantees kernel support (dk.reproject_supported /
-    stencil_supported) and a CF state.
-
-    Returns (diffuse3, specular3, shadow2 — all channel-first, new_state).
-    """
-    from ..ops.pallas import denoise_kernels as dk
-
-    assert isinstance(state, DenoiserStateCF)
-    curr = jnp.concatenate([gbuf_cf.diffuse_hitdist, gbuf_cf.specular_hitdist],
-                           axis=0)
-    curr = reblur_prepass(curr, gbuf_cf.view_z, gbuf_cf.normal_roughness[3])
-    new_packed = dk.reproject_accumulate(
-        state.packed, curr, gbuf_cf.motion, gbuf_cf.view_z,
-        interpret=interpret,
-        roughness=jnp.square(gbuf_cf.normal_roughness[3]),
-        motion_spec=gbuf_cf.motion_spec)
-    normal = _decode_oct_cf(gbuf_cf.normal_roughness)
-    # a half-precision state also streams the DMA-bound a-trous window at
-    # that precision (the shadow filter stays f32: its packed window
-    # carries object ids whose exact-match compare bf16 would corrupt)
-    sd = None if state.packed.dtype == F32 else state.packed.dtype
-    guide = _guide_cf(new_packed, gbuf_cf.view_z,
-                      gbuf_cf.normal_roughness[3])
-    out_ds = dk.atrous(
-        jnp.concatenate([new_packed[0:3], new_packed[4:7]], axis=0),
-        gbuf_cf.view_z, normal, passes=ATROUS_PASSES, interpret=interpret,
-        storage_dtype=sd, guide=guide, anti_firefly=ANTI_FIREFLY)
-    out_shadow = dk.shadow_denoise(gbuf_cf.shadow_data, gbuf_cf.obj_id,
-                                   gbuf_cf.view_z, normal, interpret=interpret)
-    return (out_ds[0:3], out_ds[3:6], out_shadow,
-            DenoiserStateCF(packed=new_packed))
-
-
-def _guide_cf(new_packed, view_z, sqrt_rough):
-    """REBLUR blur-radius guide planes [2,H,W] from the accumulated CF
-    state (ch 7 = specular hitdist history, ch 14 = frames); None when
-    the feature is gated off."""
-    if not GUIDED_BLUR:
-        return None
-    r_d, r_s = blur_radius_planes(new_packed[14].astype(F32),
-                                  new_packed[7].astype(F32), view_z,
-                                  jnp.square(sqrt_rough))
-    return jnp.stack([r_d, r_s], axis=0)
-
-
-def _decode_oct_cf(nr):
-    """DecodeUnitVector (NRDEncoding.hlsli:82-91), channel-first [4,H,W]
-    (or [>=2,H,W]) -> [3,H,W]."""
-    px = nr[0] * 2.0 - 1.0
-    py = nr[1] * 2.0 - 1.0
-    z = 1.0 - jnp.abs(px) - jnp.abs(py)
-    t = jnp.clip(-z, 0.0, 1.0)
-    x = px + jnp.where(px >= 0.0, -t, t)
-    y = py + jnp.where(py >= 0.0, -t, t)
-    n = jnp.stack([x, y, z], axis=0)
-    m = jnp.sqrt(n[0] * n[0] + n[1] * n[1] + n[2] * n[2])
-    return n / jnp.maximum(m, 1e-12)
-
-
-def _denoise_frame_pallas(gbuffer, height: int, width: int, state: DenoiserState,
-                          interpret: bool = False):
-    """TPU kernel path of denoise_frame (same contract, channel-first)."""
-    from ..ops.pallas import denoise_kernels as dk
-
-    def cf(a, c):  # [N,c] lanes -> channel-first [c,H,W]
-        return a.reshape(height, width, c).transpose(2, 0, 1)
-
-    diffuse = cf(gbuffer.diffuse_hitdist, 4)
-    specular = cf(gbuffer.specular_hitdist, 4)
-    motion = cf(gbuffer.motion, 2)
-    view_z = gbuffer.view_z.reshape(height, width)
-    nr = gbuffer.normal_roughness.reshape(height, width, 4)
-    shadow = cf(gbuffer.shadow_data, 2)
-    obj_id = gbuffer.obj_id.reshape(height, width)
-
-    if isinstance(state, DenoiserStateCF):
-        packed = state.packed  # already kernel layout: no transposes
-    else:
-        packed = jnp.concatenate(
-            [state.diffuse.transpose(2, 0, 1), state.specular.transpose(2, 0, 1),
-             state.fast_diffuse.transpose(2, 0, 1),
-             state.fast_specular.transpose(2, 0, 1),
-             state.frames[None], state.view_z[None]],
-            axis=0,
-        )
-    curr = reblur_prepass(jnp.concatenate([diffuse, specular], axis=0),
-                          view_z, nr[..., 3])
-    mv_spec = (None if getattr(gbuffer, "motion_spec", None) is None
-               else cf(gbuffer.motion_spec, 2))
-    new_packed = dk.reproject_accumulate(packed, curr, motion, view_z,
-                                         interpret=interpret,
-                                         roughness=jnp.square(nr[..., 3]),
-                                         motion_spec=mv_spec)
-
-    acc_d = new_packed[0:4]
-    acc_s = new_packed[4:8]
-    normal = _decode_oct(nr).transpose(2, 0, 1)
-    sd = None if new_packed.dtype == F32 else new_packed.dtype
-    guide = _guide_cf(new_packed, view_z, nr[..., 3])
-    out_ds = dk.atrous(jnp.concatenate([acc_d[0:3], acc_s[0:3]], axis=0),
-                       view_z, normal, passes=ATROUS_PASSES, interpret=interpret,
-                       storage_dtype=sd, guide=guide, anti_firefly=ANTI_FIREFLY)
-    out_shadow = dk.shadow_denoise(shadow, obj_id, view_z, normal,
-                                   interpret=interpret)
-
-    if isinstance(state, DenoiserStateCF):
-        new_state = DenoiserStateCF(packed=new_packed)
-    else:
-        new_state = DenoiserState(
-            diffuse=acc_d.transpose(1, 2, 0),
-            specular=acc_s.transpose(1, 2, 0),
-            fast_diffuse=new_packed[8:11].transpose(1, 2, 0),
-            fast_specular=new_packed[11:14].transpose(1, 2, 0),
-            frames=new_packed[14],
-            view_z=new_packed[15],
-        )
-    n = height * width
-    return (
-        out_ds[0:3].transpose(1, 2, 0).reshape(n, 3),
-        out_ds[3:6].transpose(1, 2, 0).reshape(n, 3),
-        out_shadow.transpose(1, 2, 0).reshape(n, 2),
-        new_state,
-    )
-
-
-# ---- multi-chip: sharded denoise with halo-row exchange ---------------------
+# ---- multi-device: sharded denoise with halo-row exchange -------------------
 #
 # The denoiser is the full pipeline's only cross-pixel stage, so it is the
 # only place image-row sharding needs a collective (SURVEY §2.5/§5.8): each
-# shard exchanges boundary rows with its mesh neighbors over ICI
+# shard exchanges boundary rows with its mesh neighbors
 # (jax.lax.ppermute), filters its extended slab, and crops the halo — output
 # bit-equal to the single-device denoiser.
 
 # History halo: the reprojection gather reaches at most MV_CLAMP_PIXELS rows
-# plus the bilinear +1 tap; 72 (a sublane multiple) covers 64 + 1. This
-# constant serves the per-pixel lane path; the CF Pallas path derives its
-# halo from the reproject tile height (_temporal_halo_cf below).
+# plus the bilinear +1 tap; 72 covers 64 + 1.
 TEMPORAL_HALO = 72
 
 
-def _temporal_halo_cf() -> int:
-    """Reprojection halo for the sharded CF (Pallas) path: covers the 64-row
-    MV clamp + bilinear tap (65), rounded up to a multiple of BOTH the
-    sublane count (8) and the reproject tile height. Tile alignment is a
-    correctness condition, not a nicety: a tile straddling zero-padded halo
-    rows and real rows would average zeros into its tile-mean motion,
-    pushing |mv - off| past RESIDUAL_LIMIT and silently rejecting valid
-    history on the first kept rows of every non-top shard (e.g. the
-    documented RTVS_REPROJ_TH=16 override; default th=8 yields 72)."""
-    import math
-
-    from ..ops.pallas import denoise_kernels as dk
-
-    th = dk.reproject_tile_rows()
-    step = 8 * th // math.gcd(8, th)
-    return -(-65 // step) * step
 # The a-trous passes exchange per-pass halos of their own stride (1, 2, 4):
 # replicating the CURRENT pass input at the image boundary is exactly the
 # whole-frame filter's jnp.pad(mode='edge') — a one-shot input halo is not
@@ -802,7 +576,7 @@ def exchange_row_halo(img, halo: int, axis_name: str, n_shards: int,
     (jax.lax.ppermute ring hops). Where the image boundary cuts the halo
     short, edge rows replicate — exactly the jnp.pad(mode='edge') the
     whole-frame filters use. axis=0 serves the lane pipeline's [rows,...]
-    slabs; axis=1 the channel-first [c,rows,W] planes.
+    slabs; axis=1 channel-first [c,rows,W] planes.
 
     Works for halo > rows (multi-hop), which the tiny-shape multichip
     dryrun exercises.
@@ -845,119 +619,6 @@ def exchange_row_halo(img, halo: int, axis_name: str, n_shards: int,
     return jnp.concatenate(
         [slc(ext_above, hops * rows - halo, hops * rows), img,
          slc(ext_below, 0, halo)], axis=axis)
-
-
-def sharded_cf_supported(rows: int, width: int) -> bool:
-    """Can the channel-first Pallas kernels run on a row slab of this size
-    (halo-extended shapes must satisfy the kernels' tiling constraints)?"""
-    from ..ops.pallas import denoise_kernels as dk
-
-    return (rows % 8 == 0
-            and dk.reproject_supported(rows + 2 * _temporal_halo_cf(), width)
-            and dk.stencil_supported(rows + 2 * _SPATIAL_HALO_CF, width))
-
-
-# Spatial halo for the sharded CF path. The largest a-trous tap reach is
-# stride = 4 rows (3x3 stencil at stride 1<<2 on the last pass); 8 is used
-# because the band kernels need every extended slab height to stay a
-# sublane (%8) multiple, not because any tap reaches that far. The shadow
-# filter (radius 2) rides the same halo.
-_SPATIAL_HALO_CF = 8
-
-
-def denoise_frame_sharded_cf(gbuf_cf, state: DenoiserStateCF, axis_name: str,
-                             n_shards: int, global_h: int,
-                             interpret: bool = False):
-    """Per-shard channel-first denoise: the single-device Pallas kernels
-    (denoise_frame_cf) run on each row slab, with halo-row collectives
-    where a stage reads across the shard boundary.
-
-    Three collective groups per frame, all ppermute ring hops over ICI:
-    one TEMPORAL_HALO exchange of the packed history (the reprojection
-    gather reaches at most MV-clamp+bilinear = 65 rows), one 8-row
-    exchange per a-trous pass (pass p's taps reach 2*stride <= 8 rows,
-    and later passes need neighbor OUTPUTS of earlier passes — which is
-    why the fused 3-pass kernel can't be used here), and one 8-row
-    exchange for the shadow filter.
-
-    Current-frame inputs need no exchange for the temporal stage: halo
-    rows only influence halo OUTPUTS (cropped), so curr/motion/view_z are
-    zero-extended. The reprojection kernel gets the slab's global row
-    offset + frame height so its in-bounds predicate (and therefore every
-    kept row) is bit-equal to the single-device kernel; the a-trous/shadow
-    results are bit-equal to the single-device UNFUSED per-pass kernels
-    (the default fused kernel differs only in float re-association).
-
-    Returns (diffuse3, specular3, shadow2 — channel-first slabs,
-    new DenoiserStateCF) — the CF analog of denoise_frame_sharded.
-    """
-    from ..ops.pallas import denoise_kernels as dk
-
-    assert isinstance(state, DenoiserStateCF)
-    rows, width = gbuf_cf.view_z.shape
-    row0 = jax.lax.axis_index(axis_name) * rows
-    halo = _temporal_halo_cf()
-
-    packed_ext = exchange_row_halo(state.packed, halo, axis_name, n_shards,
-                                   axis=1)
-    curr = jnp.concatenate([gbuf_cf.diffuse_hitdist, gbuf_cf.specular_hitdist],
-                           axis=0)
-    sqrt_rough = gbuf_cf.normal_roughness[3]
-    if HITDIST_RECON or SPEC_PREPASS:
-        # the REBLUR pre-steps reach PREPASS_HALO current-frame rows
-        # across the shard cut; one extra exchange keeps them bit-equal
-        # to the whole-frame reblur_prepass
-        pp = jnp.concatenate([curr, gbuf_cf.view_z[None], sqrt_rough[None]],
-                             axis=0)
-        ppe = exchange_row_halo(pp, PREPASS_HALO, axis_name, n_shards, axis=1)
-        curr = jax.lax.slice_in_dim(
-            reblur_prepass(ppe[0:8], ppe[8], ppe[9]),
-            PREPASS_HALO, PREPASS_HALO + rows, axis=1)
-
-    def zext(a):
-        return jnp.pad(a, ((0, 0), (halo, halo), (0, 0)))
-
-    new_ext = dk.reproject_accumulate(
-        packed_ext, zext(curr), zext(gbuf_cf.motion),
-        jnp.pad(gbuf_cf.view_z, ((halo, halo), (0, 0))),
-        interpret=interpret, row_offset=row0 - halo, global_h=global_h,
-        roughness=jnp.pad(jnp.square(sqrt_rough), ((halo, halo), (0, 0))),
-        motion_spec=(None if gbuf_cf.motion_spec is None
-                     else zext(gbuf_cf.motion_spec)))
-    new_packed = jax.lax.slice_in_dim(new_ext, halo, halo + rows, axis=1)
-
-    normal = _decode_oct_cf(gbuf_cf.normal_roughness)
-    sh = _SPATIAL_HALO_CF
-    sd = None if state.packed.dtype == F32 else state.packed.dtype
-    # REBLUR guide planes ride the per-pass exchange; the 8-row halo
-    # already covers the anti-firefly clamp's extra row (stride+1 <= 5)
-    guide = _guide_cf(new_packed, gbuf_cf.view_z,
-                      gbuf_cf.normal_roughness[3])
-    six = jnp.concatenate([new_packed[0:3], new_packed[4:7]],
-                          axis=0).astype(F32)
-    for p in range(ATROUS_PASSES):
-        chans = [six, gbuf_cf.view_z[None], normal]
-        if guide is not None:
-            chans.append(guide)
-        sp = jnp.concatenate(chans, axis=0)
-        spe = exchange_row_halo(sp, sh, axis_name, n_shards, axis=1)
-        g = spe[10:12] if guide is not None else None
-        filtered = dk.atrous_single_pass(spe[0:6], spe[6], spe[7:10], 1 << p,
-                                         interpret=interpret, storage_dtype=sd,
-                                         guide=g,
-                                         anti_firefly=ANTI_FIREFLY and p == 0)
-        six = jax.lax.slice_in_dim(filtered, sh, sh + rows, axis=1)
-
-    shp = jnp.concatenate(
-        [gbuf_cf.shadow_data, gbuf_cf.obj_id.astype(F32)[None],
-         gbuf_cf.view_z[None], normal], axis=0)
-    she = exchange_row_halo(shp, sh, axis_name, n_shards, axis=1)
-    out_shadow = dk.shadow_denoise(she[0:2], she[2].astype(jnp.int32), she[3],
-                                   she[4:7], interpret=interpret)
-    out_shadow = jax.lax.slice_in_dim(out_shadow, sh, sh + rows, axis=1)
-
-    return (six[0:3], six[3:6], out_shadow,
-            DenoiserStateCF(packed=new_packed))
 
 
 def denoise_frame_sharded(gbuffer, rows: int, width: int, state: DenoiserState,

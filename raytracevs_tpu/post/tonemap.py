@@ -54,11 +54,3 @@ def to_rgba8(color01):
     alpha = jnp.full(rgb.shape[:-1] + (1,), 255, jnp.uint8)
     return jnp.concatenate([rgb, alpha], axis=-1)
 
-
-def to_rgba8_cf(color01_cf):
-    """[3,H,W] in [0,1] -> [H,W,4] uint8 RGBA: the channel-first pipeline's
-    ONE interleave, on uint8 (a quarter of the f32 transpose traffic)."""
-    rgb = jnp.clip(color01_cf * 255.0 + 0.5, 0.0, 255.0).astype(jnp.uint8)
-    rgb = rgb.transpose(1, 2, 0)
-    alpha = jnp.full(rgb.shape[:2] + (1,), 255, jnp.uint8)
-    return jnp.concatenate([rgb, alpha], axis=-1)

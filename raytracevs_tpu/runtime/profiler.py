@@ -1,6 +1,6 @@
 """Render profiling: frame timing, Mrays/s counters, device traces.
 
-TPU equivalent of the reference's instrumentation (SURVEY §5.1): the editor
+The equivalent of the reference's instrumentation (SURVEY §5.1): the editor
 times `renderService.Render()` with a Stopwatch and reports ms via a
 RenderCompleted event with first-frame warmup excluded
 (Views/RenderWindow.xaml.cs:64-66, 388-414); command lists carry PIX names

@@ -1,6 +1,6 @@
 """SceneData -> FlatScene device arrays.
 
-TPU-native replacement for DXRPipeline::UpdateSceneData
+Host-side replacement for DXRPipeline::UpdateSceneData
 (src/RayTraceVS.DXEngine/DXRPipeline.cpp:709-1270): instead of filling upload
 heaps with AoS GPU structs, the scene becomes a pytree of padded SoA
 ``jnp`` arrays with validity masks (static capacities so jit never sees a
@@ -342,16 +342,8 @@ def flatten_scene(scene: SceneData, *, frame_index: int = 0,
             inst_trans.append(mi.material.transmission)
             inst_absorb.append(np.asarray(mi.material.absorption, np.float64)[:3])
         built = bvh_mod.combine_blas(world_blas)
-        # Fat-leaf forest for the Pallas packet traversal: collapse each
-        # BLAS before chaining (collapse assumes a single preorder tree).
-        mk_built = bvh_mod.combine_blas(
-            [bvh_mod.collapse_leaves(b, bvh_mod.MK_LEAF_SIZE,
-                                     align=bvh_mod.MK_LEAF_ALIGN)
-             for b in world_blas]
-        )
         mesh_arrays = bvh_mod.to_device(built, np.asarray(inst_trans, f32),
-                                        np.asarray(inst_absorb, f32),
-                                        mk_built=mk_built)
+                                        np.asarray(inst_absorb, f32))
 
     fwd, right, up = camera_basis(scene.camera.position, scene.camera.look_at, scene.camera.up)
     st = scene.settings

@@ -2,9 +2,9 @@
 
 Errors AND warnings always log; info/debug are gated by `set_log_enabled`
 (the reference gates warnings too behind `g_LogEnabled`, but silent
-warnings defeat their purpose — e.g. the backend-demotion warning for
-oversized meshes must surface without opt-in). Output goes to `debug.log`
-in the working directory plus standard `logging` handlers.
+warnings defeat their purpose: a warning must surface without opt-in).
+Output goes to `debug.log` in the working directory plus standard
+`logging` handlers.
 """
 from __future__ import annotations
 

@@ -1,28 +1,28 @@
 """Compare a rendered frame against the reference's own DXR render.
 
-`/root/reference/ScreenShot.png` is the reference engine's 1920x1080
-render of the canonical sample_scene.rtvs (mirror sphere, red glass
-sphere, wine glass, blue glass box on the checker floor) — actual DXR
-ground truth. BASELINE.json names "SSIM vs DXR ref" as a driver metric;
-this module computes it honestly instead of the old backend-self-parity
-stand-in.
+The reference app's 1920x1080 screenshot of its canonical scene is DXR
+ground truth for that scene. It is not shipped with this repository:
+`compare_to_reference` reads `assets/ScreenShot.png` if a user puts it
+there, or takes the image as an argument.
 
-Geometry note: the Pallas tile kernels need the row count to divide into
-16-px blue-noise tiles, so the TPU render is 1920x1088. The camera's
-vertical FOV is fixed (RayGen.hlsl:119-120: ndc.y * tanHalfFov) and the
-horizontal FOV scales with W/H, so a 1088-row render spans the SAME
-vertical world extent as the 1080-row reference and 1080/1088 of its
-horizontal extent. `warp_to_reference` resamples the render onto the
-reference pixel grid (pure bilinear, sub-pixel scale 1.0074) and crops
-the ~8 edge columns per side (~16 total) the render does not cover.
+Geometry note: the camera's vertical FOV is fixed (RayGen.hlsl:119-120:
+ndc.y * tanHalfFov) and the horizontal FOV scales with W/H, so a render
+with another row count (e.g. 1920x1088) spans the SAME vertical world
+extent as the 1080-row reference and 1080/1088 of its horizontal extent.
+`warp_to_reference` resamples the render onto the reference pixel grid
+(pure bilinear) and crops the edge columns the render does not cover.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from .ssim import ssim
 
-REF_SCREENSHOT = "/root/reference/ScreenShot.png"
+REF_SCREENSHOT = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "assets", "ScreenShot.png")
 
 
 def warp_to_reference(img: np.ndarray, ref_h: int = 1080, ref_w: int = 1920):

@@ -1,51 +1,53 @@
 """Test configuration: force CPU with 8 virtual devices.
 
-Multi-chip sharding tests run on a virtual CPU mesh
+Multi-device sharding tests run on a virtual CPU mesh
 (xla_force_host_platform_device_count), the standard way to validate
-shard_map layouts without real TPU hardware.
+shard_map layouts without several accelerators. Tests marked `gpu` need a
+CUDA device and skip elsewhere; the `gpu_device` fixture decides.
 """
 import os
 
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
 )
-os.environ["JAX_PLATFORMS"] = "cpu"
-# Equivalence suites assert bit-exactness between backends; pin the
-# denoiser-history storage precision to f32 (the TPU default may be half —
-# its quantization is covered by dedicated tests in test_denoise_kernels).
-os.environ.setdefault("RTVS_STATE_DTYPE", "f32")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+if os.environ["JAX_PLATFORMS"] == "cpu":
+    jax.config.update("jax_platforms", "cpu")
+# The Engine turns on the persistent compilation cache; tests keep it off.
+jax.config.update("jax_enable_compilation_cache", False)
 
 import pytest  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SAMPLE_SCENE = os.path.join(REPO, "assets", "sample_scene.rtvs")
 
 
 @pytest.fixture(scope="session")
 def sample_scene_path():
-    return "/root/reference/sample_scene.rtvs"
+    return SAMPLE_SCENE
 
 
 def analytic_scene_file() -> str:
     """sample_scene.rtvs minus its FBX nodes (cached in the tmp dir).
 
-    The canonical scene now renders WITH its 5.9k-triangle wine glass
-    (round-4 mesh wiring), which makes every interpret/oracle-mode render
-    of it minutes-slow on CPU. Tests whose subject is NOT the mesh path
-    (CF layout, parity smoke, goldens, viewer plumbing) use this analytic
-    subset — mesh rendering has its own dedicated suites
-    (test_big_mesh/test_megakernel mesh cases), and the full scene stays
-    covered by test_rtvs/test_cli and the nightly parity sweep."""
+    The canonical scene renders WITH its 5.9k-triangle wine glass, which
+    makes every CPU render of it slow. Tests whose subject is NOT the mesh
+    path (goldens, viewer plumbing, CLI animation) use this analytic
+    subset; the full scene stays covered by test_rtvs/test_cli."""
     import json
     import tempfile
 
     path = os.path.join(tempfile.gettempdir(), "rtvs_sample_analytic.rtvs")
-    with open("/root/reference/sample_scene.rtvs") as f:
+    with open(SAMPLE_SCENE) as f:
         doc = json.load(f)
     doc["Nodes"] = [n for n in doc["Nodes"] if "FBX" not in n.get("Type", "")]
-    with open(path, "w") as f:
+    tmp = f"{path}.{os.getpid()}"
+    with open(tmp, "w") as f:
         json.dump(doc, f)
+    os.replace(tmp, path)  # atomic: xdist workers share the tmp dir
     return path
 
 
@@ -54,51 +56,21 @@ def analytic_scene_path():
     return analytic_scene_file()
 
 
-def wine_glass_scene():
-    """The canonical mesh+glass test scene (also the bench mesh workload):
-    a 5.9k-triangle WineGlass.fbx as ior-1.05 glass over a checker plane."""
-    import tempfile
-
-    import numpy as np
-
-    from raytracevs_tpu.io.mesh_cache import MeshCacheService
-    from raytracevs_tpu.scene.data import (
-        LightData, LightType, MaterialData, MeshObjectData, PlaneData, SceneData,
-    )
-    from raytracevs_tpu.scene.transform import Transform
-
-    ms = MeshCacheService(
-        "/root/reference/Resource/Model", cache_dir=tempfile.mkdtemp()
-    )
-    ms.initialize()
-    scene = SceneData()
-    scene.camera.position = np.array([0.0, 1.5, -3.5])
-    scene.camera.look_at = np.array([0.0, 0.9, 0.0])
-    scene.settings.samples_per_pixel = 1
-    scene.settings.max_bounces = 6
-    glass = MaterialData(
-        base_color=np.array([0.95, 0.95, 0.95, 1.0]), transmission=1.0,
-        ior=1.05, roughness=0.1,
-    )
-    scene.objects += [
-        MeshObjectData(mesh_name="WineGlass",
-                       transform=Transform(scale=np.array([2.0, 2.0, 2.0])),
-                       material=glass),
-        PlaneData(),
-    ]
-    scene.lights += [
-        LightData(type=LightType.POINT, position=np.array([3.0, 5.0, -3.0]),
-                  intensity=10.0),
-        LightData(type=LightType.AMBIENT, color=np.array([0.3, 0.3, 0.3, 1.0])),
-    ]
-    return scene, ms
+@pytest.fixture
+def gpu_device():
+    """The first CUDA device; skips the test on hosts without one."""
+    try:
+        devices = jax.devices("gpu")
+    except RuntimeError:
+        devices = []
+    if not devices:
+        pytest.skip("needs a CUDA device (JAX_PLATFORMS=cuda,cpu pytest -m gpu)")
+    return devices[0]
 
 
 def pytest_collection_modifyitems(config, items):
-    """Fast/nightly split (VERDICT r2 #6): interpret-mode parity suites are
-    minutes each, so they run only with RTVS_NIGHTLY=1 (the same env var
-    that unlocks the full 256x256 backend-parity sweep). The fast suite
-    keeps one always-on cross-backend smoke check per path."""
+    """Fast/nightly split: the slow parity suites run only with
+    RTVS_NIGHTLY=1."""
     if os.environ.get("RTVS_NIGHTLY"):
         return
     skip = pytest.mark.skip(reason="nightly suite; set RTVS_NIGHTLY=1")

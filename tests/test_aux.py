@@ -2,7 +2,6 @@
 backend-demotion warnings (SURVEY §2.3 marshalling + §5.1/5.5/5.6)."""
 import logging as pylogging
 import math
-import types
 
 import numpy as np
 import pytest
@@ -128,26 +127,3 @@ def test_warnings_and_errors_always_log(caplog):
     assert "boom 1" in msgs
     assert "careful now" in msgs
     assert "hidden unless enabled" not in msgs
-
-
-# ---- backend demotion warning (VERDICT r2 #9) ------------------------------
-
-def _fake_flat(num_nodes, num_tris):
-    mesh = types.SimpleNamespace(mk_num_nodes=num_nodes, mk_num_tris=num_tris)
-    return types.SimpleNamespace(mesh=mesh, aperture_size=0.0)
-
-
-def test_pick_backend_mesh_size_ladder(monkeypatch, caplog):
-    """pallas (VMEM-resident) -> pallas_hbm (HBM-streamed tris) -> jnp
-    (node table itself beyond VMEM) with a visible warning at the cliff."""
-    from raytracevs_tpu.runtime import engine as eng
-
-    class FakeDev:
-        platform = "tpu"
-
-    monkeypatch.setattr(eng.jax, "devices", lambda: [FakeDev()])
-    assert eng._pick_backend(_fake_flat(1_000, 10_000)) == "pallas"
-    assert eng._pick_backend(_fake_flat(100_000, 1_000_000)) == "pallas_hbm"
-    with caplog.at_level(pylogging.WARNING, logger="raytracevs_tpu"):
-        assert eng._pick_backend(_fake_flat(300_000, 2_000_000)) == "jnp"
-    assert any("falling back" in r.getMessage() for r in caplog.records)

@@ -7,6 +7,7 @@ arrays — which load_fbx must decode to the same ImportedMesh the ASCII
 parser produces. This mirrors the reference's Assimp path accepting both
 container flavors (MeshCacheService.cs:270-385; its own troubleshooting
 text tells users to export "FBX 7.4 binary")."""
+import os
 import struct
 import zlib
 
@@ -146,7 +147,8 @@ def test_binary_scalar_property_types(tmp_path):
 def test_binary_wineglass_matches_ascii(tmp_path):
     """The real reference asset, re-containered: binary parse == ASCII
     parse on the full 5.9k-triangle WineGlass geometry."""
-    src = "/root/reference/Resource/Model/WineGlass.fbx"
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "assets", "WineGlass.fbx")  # not shipped: add it to run
     with open(src, "r", encoding="utf-8", errors="replace") as f:
         root = fbx._parse_ascii_fbx(f.read())
     geoms = []

@@ -4,7 +4,8 @@ Config 1: sample_scene geometry, point light, hard shadows.
 Config 2: box OBB + directional/ambient + Fresnel mirror bounce, Reinhard.
 Config 3: BSDF transmission/IOR + Beer-Lambert colored shadows + soft area
           shadows.
-Config 4: FBX triangle mesh via BVH + GGX roughness perturbation.
+Config 4: triangle mesh (the generated wine glass) via BVH + GGX roughness
+          perturbation.
 Config 5: photon-mapped caustics + denoiser + ACES + DoF, multi-frame.
 
 Goldens live in tests/golden/*.png and regenerate via
@@ -77,17 +78,14 @@ def _engine_for(config_name, res=None):
             LightData(type=LightType.AMBIENT, color=np.array([0.2, 0.2, 0.2, 1.0])),
         ]
     elif config_name == "config4_mesh":
-        import tempfile
-
-        mesh_service = MeshCacheService(
-            "/root/reference/Resource/Model", cache_dir=tempfile.mkdtemp()
-        )
-        mesh_service.initialize()
+        mesh_service = MeshCacheService()  # the generated wine glass
         glass = MaterialData(base_color=np.array([0.95, 0.95, 0.95, 1.0]),
                              transmission=1.0, ior=1.05, roughness=0.1)
-        t = Transform(scale=np.array([2.0, 2.0, 2.0]))
+        # stand the glass (modeled along -Z) upright, 2 units tall
+        t = Transform(rotation=euler_deg_to_quat([90, 0, 0]),
+                      scale=np.array([0.2, 0.2, 0.2]))
         scene.objects += [
-            MeshObjectData(mesh_name="WineGlass", transform=t, material=glass),
+            MeshObjectData(mesh_name="WineGlass2", transform=t, material=glass),
             PlaneData(),
         ]
         scene.lights += [

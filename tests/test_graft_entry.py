@@ -1,10 +1,9 @@
-"""The driver-facing deliverables in __graft_entry__ must work as shipped.
+"""The entry points in __graft_entry__ must work as shipped.
 
-Round-1 failure mode: dryrun_multichip assumed the host already exposed
-n devices; on the bench host JAX initializes one real TPU so the dry run
-crashed (MULTICHIP_r01.json rc=1). It now self-provisions a virtual CPU
-mesh — in-process when JAX is uninitialized, via subprocess re-exec when
-a backend (e.g. the TPU plugin) already claimed the process.
+dryrun_multichip must not assume the host already exposes n devices: on a
+one-accelerator host JAX initializes that device first. It self-provisions
+a virtual CPU mesh — in-process when JAX is uninitialized, via subprocess
+re-exec when a backend already claimed the process.
 """
 import os
 import subprocess
@@ -34,9 +33,6 @@ def test_dryrun_multichip_self_provisions_smoke():
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
     env["JAX_PLATFORMS"] = "cpu"
-    # the smoke guards the re-exec mechanics; the CF pallas leg is covered
-    # by test_dryrun_multichip_inprocess and the nightly driver variant
-    env["RTVS_DRYRUN_SKIP_CF"] = "1"
     code = (
         "import jax\n"
         "jax.config.update('jax_platforms', 'cpu')\n"

@@ -1,9 +1,8 @@
-"""Multi-chip sharding tests on the 8-device virtual CPU mesh."""
+"""Multi-device sharding tests on the 8-device virtual CPU mesh."""
 import numpy as np
 import pytest
 
 import jax
-import jax.numpy as jnp
 
 from raytracevs_tpu.ops.render import render_frame
 from raytracevs_tpu.parallel.tiles import make_mesh, render_frame_sharded
@@ -66,9 +65,8 @@ def test_height_divisibility_guard():
         render_frame_sharded(flat, cfg, make_mesh())
 
 
-@pytest.mark.nightly
 def test_sharded_full_pipeline_matches_single_device():
-    """Engine-level multi-chip: render + DENOISE (halo-row ppermute
+    """Engine-level multi-device: render + DENOISE (halo-row ppermute
     collectives) + composite under shard_map equals the single-device
     pipeline bit-for-bit, across two frames so real reprojection history
     flows through the temporal halo exchange."""
@@ -88,9 +86,9 @@ def test_sharded_full_pipeline_matches_single_device():
     for frame in range(2):
         f = flat._replace(frame_index=np.uint32(frame))
         rgba_s, hdr_s, _rays, _g, state_single, den_s = _render_pipeline(
-            f, cfg, "jnp", state_single)
+            f, cfg, state_single)
         rgba_m, hdr_m, rays_m, _gm, state_shard, den_m = render_pipeline_sharded(
-            f, cfg, mesh, state_shard, backend="jnp")
+            f, cfg, mesh, state_shard)
         # denoised diffuse carries ~1-ULP XLA fusion-order noise between
         # the two program shapes; everything else is exact
         np.testing.assert_allclose(
@@ -104,183 +102,6 @@ def test_sharded_full_pipeline_matches_single_device():
                         jax.tree_util.tree_leaves(state_single)):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
         assert len(rgba_m.addressable_shards) == 8
-
-
-@pytest.mark.nightly
-def test_sharded_megakernel_interpret():
-    """The PALLAS megakernel under shard_map (interpret mode on the CPU
-    mesh): the sharded TPU fast path executes and matches the jnp oracle."""
-    from raytracevs_tpu.ops.render import render_rows
-    from raytracevs_tpu.parallel.tiles import TILE_AXIS
-    from jax.sharding import PartitionSpec as P
-    from jax import shard_map
-    import jax.numpy as jnp
-
-    scene = _scene()
-    W, H = 128, 64  # 8 rows/shard -- but megakernel tiles are 32 rows tall,
-    # so run 2 shards of 32 rows on the first 2 mesh devices
-    flat = flatten_scene(scene, aspect=W / H)
-    cfg = make_config(scene, W, H)
-    mesh = make_mesh(jax.devices()[:2])
-    rows_per = H // 2
-
-    def shard_fn(s):
-        i = jax.lax.axis_index(TILE_AXIS)
-        out = render_rows(s, cfg, i * rows_per, rows_per, backend="pallas",
-                          interpret=True)
-        return out.color, out.rays.reshape(1)
-
-    specs_in = jax.tree_util.tree_map(lambda _: P(), flat)
-    color, rays = shard_map(
-        shard_fn, mesh=mesh, in_specs=(specs_in,),
-        out_specs=(P(TILE_AXIS), P(TILE_AXIS)), check_vma=False,
-    )(flat)
-    ref = render_rows(flat, cfg, jnp.int32(0), H, backend="jnp")
-    cd = np.abs(np.asarray(color) - np.asarray(ref.color)).max(axis=-1)
-    assert (cd > 1e-3).mean() < 0.02
-    assert float(np.asarray(rays).sum()) == float(np.asarray(ref.rays))
-
-
-@pytest.mark.parametrize("H,n_dev", [
-    pytest.param(64, 2, id="fast"),
-    pytest.param(128, 4, id="full", marks=pytest.mark.nightly),
-])
-def test_sharded_cf_denoise_matches_single_device(monkeypatch, H, n_dev):
-    """denoise_frame_sharded_cf (per-shard Pallas kernels + halo
-    collectives) must equal the single-device CF denoiser on every kept
-    row: bit-equal temporal state, bit-equal filters vs the UNFUSED
-    per-pass a-trous (the default fused kernel differs only by float
-    re-association, checked with a tolerance).
-
-    Fast tier: 2 shards of the same 32-row slabs (halo collectives still
-    cross a device boundary); nightly keeps the 4-shard original."""
-    import jax.numpy as jnp
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    from raytracevs_tpu.ops.pallas import denoise_kernels as dk
-    from raytracevs_tpu.ops.render_cf import GBufferCF
-    from raytracevs_tpu.parallel.tiles import TILE_AXIS
-    from raytracevs_tpu.post import denoise as denoise_mod
-
-    W = 256
-    rows = H // n_dev
-    assert denoise_mod.sharded_cf_supported(rows, W)
-    key = jax.random.PRNGKey(7)
-    ks = jax.random.split(key, 10)
-    U = jax.random.uniform
-    gbuf = GBufferCF(
-        diffuse_hitdist=U(ks[0], (4, H, W), jnp.float32),
-        specular_hitdist=U(ks[1], (4, H, W), jnp.float32),
-        normal_roughness=U(ks[2], (4, H, W), jnp.float32),
-        view_z=U(ks[3], (H, W), jnp.float32) * 20.0 + 0.5,
-        motion=U(ks[4], (2, H, W), jnp.float32) * 40.0 - 20.0,
-        albedo=U(ks[5], (4, H, W), jnp.float32),
-        shadow_data=U(ks[6], (2, H, W), jnp.float32),
-        shadow_translucency=jnp.zeros((4, H, W), jnp.float32),
-        obj_id=(U(ks[7], (H, W)) * 4).astype(jnp.int32) - 1,
-    )
-    packed = U(ks[8], (16, H, W), jnp.float32)
-    packed = packed.at[14].set((packed[14] * 8).astype(jnp.int32).astype(jnp.float32))
-    packed = packed.at[15].set(packed[15] * 20.0 + 0.5)
-    state = denoise_mod.DenoiserStateCF(packed=packed)
-
-    # single-device reference with UNFUSED per-pass a-trous
-    monkeypatch.setattr(dk, "_ATROUS_FUSED", False)
-    jax.clear_caches()
-    dd_s, ds_s, dsh_s, st_s = denoise_mod.denoise_frame_cf(
-        gbuf, state, interpret=True)
-
-    mesh = make_mesh(jax.devices()[:n_dev])
-    cf_spec = P(None, TILE_AXIS)
-
-    def shard_fn(g, st):
-        return denoise_mod.denoise_frame_sharded_cf(
-            g, st, TILE_AXIS, n_dev, H, interpret=True)
-
-    gb_specs = GBufferCF(
-        diffuse_hitdist=cf_spec, specular_hitdist=cf_spec,
-        normal_roughness=cf_spec, view_z=P(TILE_AXIS), motion=cf_spec,
-        albedo=cf_spec, shadow_data=cf_spec, shadow_translucency=cf_spec,
-        obj_id=P(TILE_AXIS),
-    )
-    st_spec = denoise_mod.DenoiserStateCF(packed=cf_spec)
-    dd, ds, dsh, st_out = shard_map(
-        shard_fn, mesh=mesh, in_specs=(gb_specs, st_spec),
-        out_specs=(cf_spec, cf_spec, cf_spec, st_spec),
-        check_vma=False,
-    )(gbuf, state)
-
-    np.testing.assert_allclose(np.asarray(st_out.packed),
-                               np.asarray(st_s.packed), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(dd), np.asarray(dd_s),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(ds), np.asarray(ds_s),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(dsh), np.asarray(dsh_s),
-                               rtol=1e-5, atol=1e-5)
-
-    # and within float noise of the default fused single-device kernel
-    monkeypatch.undo()
-    jax.clear_caches()
-    dd_f, ds_f, _dshf, st_f = denoise_mod.denoise_frame_cf(
-        gbuf, state, interpret=True)
-    np.testing.assert_allclose(np.asarray(st_f.packed),
-                               np.asarray(st_s.packed), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(dd_f), np.asarray(dd_s),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(ds_f), np.asarray(ds_s),
-                               rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.nightly
-def test_sharded_cf_pipeline_denoiser_off_interpret():
-    """Denoiser-off pallas frames take the channel-first shard path (the
-    single-device gate mirrored in tiles._render_pipeline_sharded): the
-    full sharded CF pipeline — megakernel planes -> composite_cf ->
-    to_rgba8_cf per shard, no lane interleave — executes under shard_map
-    (interpret mode) and matches the same stages composed single-device."""
-    from raytracevs_tpu.ops.render_cf import render_rows_cf
-    from raytracevs_tpu.parallel.tiles import render_pipeline_sharded
-    from raytracevs_tpu.post import composite as composite_mod
-    from raytracevs_tpu.post import tonemap
-
-    scene = _scene()
-    scene.settings.enable_denoiser = False
-    W, H = 128, 64  # megakernel tiles are 32 rows: 2 shards of 32 rows
-    flat = flatten_scene(scene, aspect=W / H)
-    cfg = make_config(scene, W, H)
-    mesh = make_mesh(jax.devices()[:2])
-
-    rgba_m, hdr_m, rays_m, _gb, state_out, den = render_pipeline_sharded(
-        flat, cfg, mesh, denoise_state=None, backend="pallas",
-        interpret=True)
-    assert state_out is None and den is None
-    assert len(rgba_m.addressable_shards) == 2
-
-    out = render_rows_cf(flat, cfg, jnp.int32(0), H, backend="pallas",
-                         interpret=True)
-    color01 = composite_mod.composite_cf(
-        out.gbuffer, out.raw_specular, flat.exposure,
-        flat.tone_map_operator, flat.gamma, use_denoised=False)
-    rgba_s = tonemap.to_rgba8_cf(color01)
-    np.testing.assert_array_equal(np.asarray(rgba_m), np.asarray(rgba_s))
-    np.testing.assert_array_equal(
-        np.asarray(hdr_m), np.asarray(out.color.transpose(1, 2, 0)))
-    assert int(np.asarray(rays_m).sum()) > 0
-
-
-def test_temporal_halo_cf_aligns_to_reproject_tiles(monkeypatch):
-    """The CF sharded path's history halo must be a multiple of the
-    reproject tile height: a tile straddling zero-padded and real motion
-    rows would dilute its tile-mean motion and reject valid history on the
-    first kept rows of every non-top shard."""
-    from raytracevs_tpu.post import denoise as denoise_mod
-
-    monkeypatch.delenv("RTVS_REPROJ_TH", raising=False)
-    assert denoise_mod._temporal_halo_cf() == 72  # default th=8
-    monkeypatch.setenv("RTVS_REPROJ_TH", "16")
-    assert denoise_mod._temporal_halo_cf() == 80  # covers 65, %16 == 0
 
 
 def test_sharded_pipeline_want_aux_false_matches_and_skips_aux():
@@ -299,46 +120,9 @@ def test_sharded_pipeline_want_aux_false_matches_and_skips_aux():
     st_a = denoise_mod.init_state(H, W)
     st_b = denoise_mod.init_state(H, W)
     rgba_a, hdr_a, rays_a, gb_a, st_a, den_a = render_pipeline_sharded(
-        flat, cfg, mesh, st_a, backend="jnp")
+        flat, cfg, mesh, st_a)
     rgba_b, hdr_b, rays_b, gb_b, st_b, den_b = render_pipeline_sharded(
-        flat, cfg, mesh, st_b, backend="jnp", want_aux=False)
-    assert hdr_b is None and gb_b is None and den_b is None
-    assert hdr_a is not None and gb_a is not None and den_a is not None
-    np.testing.assert_array_equal(np.asarray(rgba_b), np.asarray(rgba_a))
-    assert float(np.asarray(rays_b).sum()) == float(np.asarray(rays_a).sum())
-    for a, b in zip(jax.tree_util.tree_leaves(st_a),
-                    jax.tree_util.tree_leaves(st_b)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@pytest.mark.nightly
-def test_sharded_cf_want_aux_false_matches_and_skips_aux():
-    """The CF shard branch's want_aux=False early return (tiles.py
-    shard_fn_cf) with its None out_specs slots — interpret-mode Pallas on
-    a 2-device mesh (megakernel shards must be 32-row multiples; the
-    8-device variant would need H=256, nightly-class cost), fast-tier
-    (ADVICE r3)."""
-    from raytracevs_tpu.parallel.tiles import render_pipeline_sharded
-    from raytracevs_tpu.post import denoise as denoise_mod
-
-    scene = _scene()
-    scene.settings.enable_denoiser = True
-    scene.settings.max_bounces = 2
-    W, H = 256, 64  # 2 shards x 32 megakernel rows; width >= 2 reproject tiles
-    flat = flatten_scene(scene, aspect=W / H)
-    cfg = make_config(scene, W, H)
-    mesh = make_mesh(jax.devices()[:2])
-    assert denoise_mod.sharded_cf_supported(H // 2, W)
-
-    st_a = denoise_mod.init_state_cf(H, W)
-    st_b = denoise_mod.init_state_cf(H, W)
-    rgba_a, hdr_a, rays_a, gb_a, st_a, den_a = render_pipeline_sharded(
-        flat, cfg, mesh, st_a, backend="pallas", interpret=True)
-    rgba_b, hdr_b, rays_b, gb_b, st_b, den_b = render_pipeline_sharded(
-        flat, cfg, mesh, st_b, backend="pallas", interpret=True,
-        want_aux=False)
-    # the CF path (not the lane demotion) must actually have run
-    assert isinstance(st_a, denoise_mod.DenoiserStateCF)
+        flat, cfg, mesh, st_b, want_aux=False)
     assert hdr_b is None and gb_b is None and den_b is None
     assert hdr_a is not None and gb_a is not None and den_a is not None
     np.testing.assert_array_equal(np.asarray(rgba_b), np.asarray(rgba_a))

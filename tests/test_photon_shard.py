@@ -1,4 +1,4 @@
-"""Photon-axis multi-chip parallelism (SURVEY §2.5 photon row).
+"""Photon-axis multi-device parallelism (SURVEY §2.5 photon row).
 
 The photon batch is embarrassingly parallel: every per-photon seed
 (emission AND the Russian-roulette chain) is keyed on the photon's GLOBAL
@@ -40,12 +40,11 @@ def test_photon_slices_compose_bit_exactly():
     for element (global-index seeding; PhotonEmit.hlsl:44-48 parity)."""
     flat = flatten_scene(_caustic_scene())
     n = 2048
-    full = photon_mod.trace_photon_slice(flat, n, 0, n, backend="jnp")
+    full = photon_mod.trace_photon_slice(flat, n, 0, n)
     assert int(np.asarray(full[4]).sum()) > 50  # scene stores caustics
 
     per = n // 4
-    parts = [photon_mod.trace_photon_slice(flat, n, k * per, per,
-                                           backend="jnp")
+    parts = [photon_mod.trace_photon_slice(flat, n, k * per, per)
              for k in range(4)]
     for f in range(5):
         stitched = np.concatenate([np.asarray(p[f]) for p in parts], axis=0)
@@ -53,7 +52,7 @@ def test_photon_slices_compose_bit_exactly():
                                       err_msg=f"store field {f}")
 
     # and the hash build over the stitched stores equals emit_and_trace
-    pm_ref = photon_mod.emit_and_trace(flat, n, backend="jnp")
+    pm_ref = photon_mod.emit_and_trace(flat, n)
     pm_st = photon_mod.build_photon_hash(
         *[jnp.asarray(np.concatenate([np.asarray(p[f]) for p in parts]))
           for f in range(5)])
@@ -86,7 +85,7 @@ def test_sharded_photon_map_is_bit_identical():
     from jax.sharding import PartitionSpec as P
 
     from raytracevs_tpu.parallel.tiles import (
-        TILE_AXIS, _sharded_photon_map, make_mesh,
+        _sharded_photon_map, make_mesh,
     )
 
     scene = _caustic_scene()
@@ -95,11 +94,11 @@ def test_sharded_photon_map_is_bit_identical():
     cfg = make_config(scene, W, H, num_photons=2048)
     mesh = make_mesh()  # 8 devices -> 256 photons per device
 
-    pm_ref = photon_mod.emit_and_trace(flat, 2048, backend="jnp")
+    pm_ref = photon_mod.emit_and_trace(flat, 2048)
     specs_in = jax.tree_util.tree_map(lambda _: P(), flat)
     pm_specs = jax.tree_util.tree_map(lambda _: P(), pm_ref)
     pm = shard_map(
-        lambda s: _sharded_photon_map(s, cfg, 8, "jnp"),
+        lambda s: _sharded_photon_map(s, cfg, 8),
         mesh=mesh, in_specs=(specs_in,), out_specs=pm_specs,
         check_vma=False,
     )(flat)
@@ -109,50 +108,6 @@ def test_sharded_photon_map_is_bit_identical():
                                       err_msg=name)
 
 
-@pytest.mark.nightly
-def test_sharded_cf_pipeline_caustics_interpret():
-    """The channel-first PALLAS shard path with caustics ON (interpret
-    mode): per-device photon slices (jnp fallback — 2048 isn't
-    tile-shaped), all_gather, pallas gather kernel per shard. Bounded
-    mismatch vs the single-device CF pipeline: the single-device map is
-    traced by the PALLAS tracer (4096 is tile-shaped) whose photon fates
-    differ from the jnp oracle on ~0.5% of photons at discrete
-    boundaries, on top of the usual 1-ULP acceptance flips."""
-    from raytracevs_tpu.ops.render_cf import render_rows_cf
-    from raytracevs_tpu.parallel.tiles import make_mesh, render_pipeline_sharded
-    from raytracevs_tpu.post import composite as composite_mod
-    from raytracevs_tpu.post import tonemap
-
-    scene = _caustic_scene()
-    scene.settings.enable_denoiser = False
-    W, H = 128, 64  # megakernel tiles are 32 rows: 2 shards of 32 rows
-    flat = flatten_scene(scene, aspect=W / H)
-    cfg = make_config(scene, W, H, num_photons=4096)
-    mesh = make_mesh(jax.devices()[:2])
-
-    rgba_m, hdr_m, rays_m, _gb, _st, _dn = render_pipeline_sharded(
-        flat, cfg, mesh, denoise_state=None, backend="pallas",
-        interpret=True)
-
-    out = render_rows_cf(flat, cfg, jnp.int32(0), H, backend="pallas",
-                         interpret=True)
-    color01 = composite_mod.composite_cf(
-        out.gbuffer, out.raw_specular, flat.exposure,
-        flat.tone_map_operator, flat.gamma, use_denoised=False)
-    rgba_s = tonemap.to_rgba8_cf(color01)
-    d = np.abs(np.asarray(rgba_m).astype(np.int32)
-               - np.asarray(rgba_s).astype(np.int32)).max(axis=-1)
-    assert (d > 2).mean() < 0.02
-    # caustics actually contribute on the sharded path
-    base = make_config(scene, W, H)
-    rgba_off, *_ = render_pipeline_sharded(
-        flat, base, mesh, denoise_state=None, backend="pallas",
-        interpret=True)
-    assert np.abs(np.asarray(rgba_m).astype(np.int32)
-                  - np.asarray(rgba_off).astype(np.int32)).sum() > 0
-
-
-@pytest.mark.nightly
 def test_sharded_pipeline_caustics_matches_single_device():
     """The full sharded pipeline with caustics ON renders the same frame
     as the single-device pipeline. The photon MAP is bit-identical (test
@@ -170,11 +125,10 @@ def test_sharded_pipeline_caustics_matches_single_device():
     cfg = make_config(scene, W, H, num_photons=2048)
     assert cfg.num_photons == 2048
 
-    rgba_s, hdr_s, rays_s, _g, _st, _dn = _render_pipeline(
-        flat, cfg, "jnp", None)
+    rgba_s, hdr_s, rays_s, _g, _st, _dn = _render_pipeline(flat, cfg, None)
     mesh = make_mesh()  # 8 devices -> 256 photons per device
     rgba_m, hdr_m, rays_m, _gm, _stm, _dnm = render_pipeline_sharded(
-        flat, cfg, mesh, None, backend="jnp")
+        flat, cfg, mesh, None)
     rgba_d = np.abs(np.asarray(rgba_m).astype(np.int32)
                     - np.asarray(rgba_s).reshape(H, W, 4).astype(np.int32))
     assert (rgba_d.max(axis=-1) > 2).mean() < 0.02
@@ -184,6 +138,6 @@ def test_sharded_pipeline_caustics_matches_single_device():
     assert float(np.asarray(rays_m).sum()) == float(np.asarray(rays_s))
     # the caustic actually contributes (photon pass not compiled out)
     base_cfg = make_config(scene, W, H)
-    rgba_off, *_ = _render_pipeline(flat, base_cfg, "jnp", None)
+    rgba_off, *_ = _render_pipeline(flat, base_cfg, None)
     assert np.abs(np.asarray(rgba_off).astype(np.int32)
                   - np.asarray(rgba_s).astype(np.int32)).sum() > 0
